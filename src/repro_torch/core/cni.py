@@ -1,0 +1,144 @@
+"""Compact Neighborhood Index (the paper's §3.1), port of ``repro.core.cni``.
+
+``cni(u) = Σ_{j=1..k} ħ(j, x_1+…+x_j)`` with ``ħ(q,p) = C(q+p-1, q)`` over
+the vertex's neighbour labels in *descending* ord() order.  The exact digest
+is one int64 per row, saturating at ``SAT64 = 2^62``: it equals the
+reference's two-limb value ``limb_to_u64_np(hi, lo)``.  The float32
+log-space digest is the logsumexp of log-ħ terms.
+
+The Pascal and log-ħ tables are built on the host with numpy/scipy, as the
+reference builds them, and uploaded once per (d_max, max_p, device).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+# saturation threshold of the exact digest (the reference's SAT64)
+SAT64 = 1 << 62
+# log-space twin of SAT64: log digests at/above it count as saturated
+LOG_SAT64 = float(62 * np.log(2.0))
+
+
+@functools.lru_cache(maxsize=8)
+def _pascal_table_np(max_q: int, max_p: int) -> np.ndarray:
+    """(max_q+1, max_p+1) uint64 table of ħ(q,p), saturated at SAT64.
+
+    Row q is the prefix sum of row q-1; a float shadow detects overflow and
+    saturation is sticky (the reference's construction, step for step).
+    """
+    sat_u = np.uint64(SAT64)
+    sat_f = float(SAT64)
+    row_u = np.ones(max_p + 1, dtype=np.uint64)
+    row_u[0] = 0
+    row_f = row_u.astype(np.float64)
+    table = np.zeros((max_q + 1, max_p + 1), dtype=np.uint64)
+    table[0] = row_u
+    for q in range(1, max_q + 1):
+        nxt_f = np.cumsum(row_f)
+        nxt_u = np.cumsum(row_u, dtype=np.uint64)
+        sat = nxt_f >= sat_f
+        nxt_u[sat] = sat_u
+        nxt_f[sat] = sat_f
+        table[q] = nxt_u
+        row_u, row_f = nxt_u, nxt_f
+    return table
+
+
+@functools.lru_cache(maxsize=8)
+def _log_hbar_np(max_q: int, max_p: int) -> np.ndarray:
+    from scipy.special import gammaln  # host-only precompute
+
+    q = np.arange(max_q + 1, dtype=np.float64)[:, None]
+    p = np.arange(max_p + 1, dtype=np.float64)[None, :]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        val = gammaln(q + p) - gammaln(q + 1.0) - gammaln(np.maximum(p, 1e-9))
+    val = np.where(p < 0.5, -np.inf, val)  # ħ(q, 0) := 0
+    return val.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _pascal_table(max_q: int, max_p: int, device: torch.device) -> torch.Tensor:
+    # every entry is <= 2^62, so the uint64 table fits int64 unchanged
+    return torch.as_tensor(
+        _pascal_table_np(max_q, max_p).astype(np.int64), device=device
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _log_hbar(max_q: int, max_p: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_log_hbar_np(max_q, max_p), device=device)
+
+
+def default_max_p(d_max: int, n_labels: int, cap: int = 4096) -> int:
+    """Static bound on prefix sums fed to the ħ table (clipping is monotone,
+    so it only weakens the filter)."""
+    return int(min(d_max * max(n_labels, 1), cap))
+
+
+def _descending_positions(counts: torch.Tensor, d_max: int):
+    """Expand (V, L) count rows into descending ord()-value sequences.
+
+    counts[v, l] = multiplicity of ord value (l+1).  Returns
+    (prefix_sums (V, D) int32, valid (V, D) bool, deg (V,) int64); positions
+    >= deg hold label 0.
+    """
+    L = counts.shape[-1]
+    ccum = counts.flip(-1).cumsum(-1)  # (V, L) int64; index i ↔ ord L - i
+    pos = torch.arange(d_max, dtype=ccum.dtype, device=counts.device)
+    # label at position j: first i with ccum[i] > j  ⇒ ord value L - i
+    idx = torch.searchsorted(
+        ccum, pos.expand(ccum.shape[0], d_max).contiguous(), right=True,
+        out_int32=True,
+    )
+    deg = ccum[:, -1]
+    valid = pos[None, :] < deg[:, None]
+    lab = torch.where(valid, (L - idx).clamp_min(0), 0)
+    prefix = lab.cumsum(-1, dtype=torch.int32)
+    return prefix, valid, deg
+
+
+def _term_index(prefix: torch.Tensor, d_max: int, max_p: int) -> torch.Tensor:
+    """Flat index of ħ(j+1, min(prefix_j, max_p)) into a (D+1, P+1) table."""
+    q = torch.arange(1, d_max + 1, device=prefix.device, dtype=torch.int64)
+    return q[None, :] * (max_p + 1) + prefix.clamp(0, max_p)
+
+
+def cni_from_counts(counts: torch.Tensor, d_max: int, max_p: int) -> torch.Tensor:
+    """Exact saturating CNI, one int64 per count row.
+
+    counts: (..., L) int; any leading batch shape.  The sum saturates at
+    SAT64 term by term as ``acc + min(term, SAT64 - acc)``, which never
+    forms a value above 2^62 (a raw 2^62 + 2^62 would overflow int64).
+    """
+    batch_shape = counts.shape[:-1]
+    counts = counts.reshape(-1, counts.shape[-1])
+    table = _pascal_table(d_max, max_p, counts.device)
+    prefix, valid, _ = _descending_positions(counts, d_max)
+    terms = table.view(-1)[_term_index(prefix, d_max, max_p)]
+    terms = torch.where(valid, terms, 0)
+    acc = torch.zeros(counts.shape[0], dtype=torch.int64, device=counts.device)
+    for i in range(d_max):
+        acc = acc + torch.minimum(terms[:, i], SAT64 - acc)
+    return acc.reshape(batch_shape)
+
+
+def cni_log_from_counts(counts: torch.Tensor, d_max: int, max_p: int) -> torch.Tensor:
+    """float32 log-space CNI: logsumexp of the log-ħ terms, per count row."""
+    batch_shape = counts.shape[:-1]
+    counts = counts.reshape(-1, counts.shape[-1])
+    log_t = _log_hbar(d_max, max_p, counts.device)
+    prefix, valid, deg = _descending_positions(counts, d_max)
+    terms = log_t.view(-1)[_term_index(prefix, d_max, max_p)]
+    terms = torch.where(valid, terms, -torch.inf)
+    if d_max > 0:
+        m = terms.max(dim=-1).values
+    else:
+        m = torch.full((counts.shape[0],), -torch.inf, device=counts.device)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    s = torch.where(valid, torch.exp(terms - m_safe[:, None]), 0.0).sum(-1)
+    out = m_safe + torch.log(s.clamp_min(1e-30))
+    return torch.where(deg > 0, out, -torch.inf).reshape(batch_shape)

@@ -1,0 +1,195 @@
+"""Public API: the end-to-end CNI subgraph-query engine, port of
+``repro.core.engine`` for an in-memory ``Graph``.
+
+Pipeline = ILGF fixed point (on the device) → compaction (host) →
+optional k-hop refinement → join enumeration.  ``search_filtered`` is the
+post-filter stage on its own.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Literal
+
+import numpy as np
+
+from repro_torch import obsv
+from repro_torch.core.ilgf import ilgf
+from repro_torch.core.khop import refine_candidates_khop
+from repro_torch.core.search import (
+    bfs_join_search,
+    device_join_search,
+    host_dfs_search,
+)
+from repro_torch.device import resolve_device
+from repro_torch.graphs.csr import Graph, graph_to, induced_subgraph, to_host
+
+
+@dataclass
+class QueryStats:
+    filter_seconds: float = 0.0
+    search_seconds: float = 0.0
+    ilgf_iterations: int = 0
+    vertices_before: int = 0
+    vertices_after: int = 0
+    candidate_pairs: int = 0
+    n_embeddings: int = 0
+    extras: dict = field(default_factory=dict)
+
+
+def search_filtered(
+    data: Graph,
+    query: Graph,
+    alive: np.ndarray,
+    candidates: np.ndarray,
+    stats: QueryStats,
+    *,
+    khop: int = 1,
+    searcher: str = "join",
+    search_vertex_cap: int = 8192,
+    max_embeddings: int | None = None,
+    enumerator: str = "host",
+    device=None,
+) -> np.ndarray:
+    """Compaction → optional k-hop refinement → enumeration on one query.
+
+    ``alive``: (V,) bool fixed-point mask; ``candidates``: (V, U) bool C(u)
+    columns over original vertex ids.  Returns embeddings over original ids
+    and fills the search-side fields of ``stats`` in place.
+
+    ``enumerator``: ``"host"`` (``bfs_join_search``) or ``"device"``
+    (``device_join_search``, whose telemetry lands in
+    ``stats.extras["enum"]`` on every exit path, filter-killed queries
+    included).  Embeddings are bit-identical either way.
+    """
+    if enumerator not in ("host", "device"):
+        raise ValueError(
+            f"enumerator must be 'host' or 'device', got {enumerator!r}"
+        )
+    dev = resolve_device(device)
+    stats.vertices_after = int(alive.sum())
+    if stats.vertices_after == 0:
+        if enumerator == "device" and searcher != "dfs":
+            stats.extras["enum"] = obsv.EnumReport.empty()
+        return np.zeros((0, query.n_vertices), np.int64)
+
+    sub, old_ids = induced_subgraph(data, alive)
+    cand = np.asarray(candidates)[alive]
+    if khop > 1 and sub.n_vertices <= search_vertex_cap:
+        with obsv.span("query.refine", khop=khop):
+            t_ref = time.perf_counter()
+            cand = refine_candidates_khop(sub, query, cand, k_max=khop,
+                                          device=dev)
+            stats.filter_seconds += time.perf_counter() - t_ref
+    stats.candidate_pairs = int(cand.sum())
+
+    t1 = time.perf_counter()
+    if sub.n_vertices > search_vertex_cap:
+        raise ValueError(
+            f"filtered graph has {sub.n_vertices} vertices > cap "
+            f"{search_vertex_cap}; raise search_vertex_cap"
+        )
+    with obsv.span("query.enumerate", searcher=searcher,
+                   enumerator=enumerator) as enum_span:
+        if searcher == "dfs":
+            emb = host_dfs_search(sub, query, cand,
+                                  max_embeddings=max_embeddings)
+        elif enumerator == "device":
+            enum_report: dict = {}
+            emb = device_join_search(sub, query, cand,
+                                     max_embeddings=max_embeddings,
+                                     report=enum_report, device=dev)
+            # from_dict is the schema checkpoint of every exit path
+            stats.extras["enum"] = obsv.EnumReport.from_dict(enum_report)
+        else:
+            emb = bfs_join_search(sub, query, cand,
+                                  max_embeddings=max_embeddings, device=dev)
+        enum_span.set_attrs(n_embeddings=int(emb.shape[0]))
+    stats.search_seconds = time.perf_counter() - t1
+    stats.n_embeddings = int(emb.shape[0])
+    return old_ids[emb] if emb.size else emb
+
+
+def _not_in_this_slice(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with ROADMAP.md queue A item "
+        f"{item}; the port's engine takes a plain repro_torch Graph"
+    )
+
+
+class SubgraphQueryEngine:
+    """CNI-filter + join-search engine over one in-memory data graph.
+
+    ``data``: a ``repro_torch`` ``Graph``, moved to ``device`` once.
+    ``device``: ``None`` means ``"cuda"`` (raises without a card); pass
+    ``"cpu"`` to run on the host.  ``enumerator``: ``"host"`` (default) or
+    ``"device"`` — the two-phase count → scan → emit join, with its
+    telemetry in ``stats.extras["enum"]``.
+
+    A mutable store or snapshot, ``mesh=`` and ``planner=`` belong to later
+    slices of the port and raise ``NotImplementedError``.
+    """
+
+    def __init__(
+        self,
+        data,
+        *,
+        filter_variant: Literal["cni", "cni_log", "nlf", "label_degree",
+                                "mnd_nlf"] = "cni",
+        khop: int = 1,
+        searcher: Literal["join", "dfs"] = "join",
+        search_vertex_cap: int = 8192,
+        mesh=None,
+        planner=None,
+        enumerator: Literal["host", "device"] = "host",
+        device=None,
+    ):
+        if not isinstance(data, Graph):
+            raise _not_in_this_slice(
+                f"a {type(data).__name__} data source (GraphStore / "
+                "GraphSnapshot)", "7 (mutable store and incremental index)")
+        if mesh is not None:
+            raise _not_in_this_slice("mesh=", "11 (multi-device)")
+        if planner is not None:
+            raise _not_in_this_slice("planner=", "5 (planner)")
+        if enumerator not in ("host", "device"):
+            raise ValueError(
+                f"enumerator must be 'host' or 'device', got {enumerator!r}"
+            )
+        self.device = resolve_device(device)
+        self.data = graph_to(data, self.device)
+        self._host_data = to_host(self.data)  # search re-reads fields often
+        self.filter_variant = filter_variant
+        self.khop = khop
+        self.searcher = searcher
+        self.search_vertex_cap = search_vertex_cap
+        self.enumerator = enumerator
+
+    def query(self, q: Graph, *, max_embeddings: int | None = None):
+        """Returns (embeddings (M, |V(Q)|) int64 over original ids, stats).
+
+        With an active tracer each call opens one ``query`` span with
+        ``query.filter`` / ``query.enumerate`` children.
+        """
+        with obsv.span("query", n_vertices=self.data.n_vertices):
+            stats = QueryStats(vertices_before=self.data.n_vertices)
+            t0 = time.perf_counter()
+            res = ilgf(self.data, q, variant=self.filter_variant)
+            alive = res.alive.cpu().numpy()
+            candidates = res.candidates.cpu().numpy()
+            stats.ilgf_iterations = res.iterations
+            stats.filter_seconds = time.perf_counter() - t0
+            obsv.span_at("query.filter", t0, t0 + stats.filter_seconds,
+                         iterations=stats.ilgf_iterations,
+                         alive=int(alive.sum()))
+            emb = search_filtered(
+                self._host_data, q, alive, candidates, stats,
+                khop=self.khop,
+                searcher=self.searcher,
+                search_vertex_cap=self.search_vertex_cap,
+                max_embeddings=max_embeddings,
+                enumerator=self.enumerator,
+                device=self.device,
+            )
+            return emb, stats

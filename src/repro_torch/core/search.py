@@ -1,0 +1,498 @@
+"""Subgraph search over the ILGF-filtered graph (the paper's §3.3), port of
+``repro.core.search``.
+
+Three engines, all enumerating the same embeddings in the same row order:
+
+* ``host_dfs_search`` — Ullmann's recursive DFS (Algorithms 4/5) in numpy,
+  the exactness oracle.
+* ``bfs_join_search`` — the breadth-first vectorized join with a host
+  result table: small levels run in numpy, large ones evaluate their
+  validity grid on the device (``embed_join``).
+* ``device_join_search`` — the partial-embedding table stays on the device
+  and every level is a two-phase join: a count pass sizes the output, an
+  on-device exclusive scan assigns slots (one scalar syncs per level), and
+  an emit pass scatters each survivor's cell id into an exactly-sized,
+  128-row-aligned buffer that one gather decodes.  On a CUDA device the
+  count and emit passes are the hand-written kernels; on the CPU the same
+  loop runs their plain versions.
+
+Row order is the flat row-major survivor order (lexicographic in the
+matching order), which is what keeps ``max_embeddings`` prefixes identical
+across the engines.  By default the matching order follows the
+candidate-cardinality greedy rule (``greedy_matching_order``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import obsv
+from repro_torch.device import resolve_device
+from repro_torch.graphs.csr import Graph, as_numpy
+from repro_torch.kernels.embed_join import ops
+
+# ---------------------------------------------------------------------------
+# Matching order.
+# ---------------------------------------------------------------------------
+
+
+def greedy_matching_order(sizes, adj) -> list[int]:
+    """Candidate-cardinality greedy matching order (§2.2 heuristic).
+
+    Start at the smallest candidate set, then repeatedly take the
+    smallest-|C(u)| vertex connected to the prefix (any remaining vertex
+    only when the query is disconnected); ties break by smallest vertex id.
+
+    ``sizes``: (U,) per-query-vertex candidate cardinalities;
+    ``adj``: ``{u: {w: edge_label}}`` query adjacency.
+    """
+    sizes = np.asarray(sizes)
+    n_q = int(sizes.shape[0])
+    order: list[int] = [int(np.argmin(sizes))]
+    remaining = [u for u in range(n_q) if u != order[0]]
+    while remaining:
+        connected = [u for u in remaining
+                     if any(w in adj.get(u, {}) for w in order)]
+        pool = connected if connected else remaining
+        nxt = min(pool, key=lambda u: (sizes[u], u))
+        order.append(nxt)
+        remaining.remove(nxt)
+    return order
+
+
+def _as_order(order: Sequence[int], n_q: int) -> list[int]:
+    """Validate a caller-supplied matching order (any permutation is legal)."""
+    o = [int(u) for u in order]
+    if sorted(o) != list(range(n_q)):
+        raise ValueError(
+            f"matching order must be a permutation of range({n_q}), got {o}"
+        )
+    return o
+
+
+def _matching_order(order, cand: np.ndarray, q_adj, n_q: int) -> list[int]:
+    if order is None:
+        return greedy_matching_order(cand.sum(axis=0), q_adj)
+    return _as_order(order, n_q)
+
+
+# ---------------------------------------------------------------------------
+# Host DFS oracle (Ullmann subroutine, Algorithms 4-5).
+# ---------------------------------------------------------------------------
+
+
+def _host_adjacency(g: Graph):
+    adj: dict[int, dict[int, int]] = {}
+    for s, t, e in zip(as_numpy(g.src), as_numpy(g.dst), as_numpy(g.elabels)):
+        adj.setdefault(int(s), {})[int(t)] = int(e)
+    return adj
+
+
+def host_dfs_search(
+    data: Graph,
+    query: Graph,
+    candidates: np.ndarray,
+    *,
+    order: Sequence[int] | None = None,
+    max_embeddings: int | None = None,
+) -> np.ndarray:
+    """All embeddings (rows = mappings, columns = query vertices).
+
+    ``candidates``: (V, U) bool — C(u) columns from ILGF.  ``order``: an
+    explicit matching order; defaults to the greedy rule.
+    """
+    cand = as_numpy(candidates)
+    n_q = query.n_vertices
+    d_adj = _host_adjacency(data)
+    q_adj = _host_adjacency(query)
+    order = _matching_order(order, cand, q_adj, n_q)
+
+    results: list[list[int]] = []
+    mapping = [-1] * n_q
+    used: set[int] = set()
+
+    def neighbor_check(u: int, v: int) -> bool:
+        # Algorithm 5: every matched query-neighbor must map to a data
+        # neighbor with a matching edge label.
+        for u2, el in q_adj.get(u, {}).items():
+            v2 = mapping[u2]
+            if v2 >= 0:
+                got = d_adj.get(v, {}).get(v2)
+                if got is None or got != el:
+                    return False
+        return True
+
+    def rec(depth: int) -> bool:
+        if max_embeddings is not None and len(results) >= max_embeddings:
+            return True
+        if depth == n_q:
+            results.append(list(mapping))
+            return False
+        u = order[depth]
+        for v in np.nonzero(cand[:, u])[0]:
+            v = int(v)
+            if v in used:
+                continue
+            if neighbor_check(u, v):
+                mapping[u] = v
+                used.add(v)
+                if rec(depth + 1):
+                    return True
+                used.discard(v)
+                mapping[u] = -1
+        return False
+
+    rec(0)
+    return np.asarray(results, dtype=np.int64).reshape(-1, n_q)
+
+
+# ---------------------------------------------------------------------------
+# Breadth-first join engine (host result table).
+# ---------------------------------------------------------------------------
+
+
+def _dense_edge_labels(g: Graph, n: int) -> np.ndarray:
+    """(n, n) int32 matrix: edge label, or -1 if no edge."""
+    m = -np.ones((n, n), dtype=np.int32)
+    m[as_numpy(g.src), as_numpy(g.dst)] = as_numpy(g.elabels)
+    return m
+
+
+def _expand_step_np(chunk, cand_ids, elab_np, q_pos, q_lab, q_val):
+    """Numpy validity grid for small (R·C·J) levels, where a device round
+    trip costs more than the work."""
+    mapped = chunk[:, q_pos]                                   # (R, J)
+    got = elab_np[mapped[:, :, None], cand_ids[None, None, :]]  # (R, J, C)
+    lab_ok = (got == q_lab[None, :, None]) | ~q_val[None, :, None]
+    adj_ok = lab_ok.all(axis=1)                                # (R, C)
+    inj_ok = (chunk[:, :, None] != cand_ids[None, None, :]).all(axis=1)
+    return adj_ok & inj_ok
+
+
+# below this many (R·C·J) cells a join level runs on host numpy
+_HOST_JOIN_CELLS = 1 << 18
+
+
+def _level_constraints(q_adj, pos_of, u: int, t: int):
+    """Matched-neighbor constraint arrays for join level ``t`` (vertex u).
+
+    Returns (q_pos, q_lab, q_val): positions (< t) of already-matched query
+    neighbors, their required edge labels, and a validity mask (at least one
+    inert row is kept so shapes never collapse to zero)."""
+    nbrs = [(pos_of[w], el) for w, el in q_adj.get(u, {}).items()
+            if pos_of[w] < t]
+    j = max(1, len(nbrs))
+    q_pos = np.zeros(j, dtype=np.int32)
+    q_lab = np.zeros(j, dtype=np.int32)
+    q_val = np.zeros(j, dtype=bool)
+    for k, (p, el) in enumerate(nbrs):
+        q_pos[k], q_lab[k], q_val[k] = p, el, True
+    return q_pos, q_lab, q_val
+
+
+def _host_join_level(table, cand_ids, elab_np, elab_dev, constraints,
+                     chunk_rows: int, t: int, device):
+    """One chunked join level with a host survivor table.
+
+    Returns ``(new_table, elab_dev)`` — the survivor table of width
+    ``t + 1`` and the device copy of the edge-label matrix (made on the
+    first chunk large enough for the device)."""
+    q_pos, q_lab, q_val = constraints
+    new_rows: list[np.ndarray] = []
+    for lo in range(0, table.shape[0], chunk_rows):
+        chunk = table[lo : lo + chunk_rows]
+        r = chunk.shape[0]
+        if r * cand_ids.size * q_pos.size <= _HOST_JOIN_CELLS:
+            valid = _expand_step_np(chunk, cand_ids, elab_np, q_pos, q_lab, q_val)
+        else:
+            if elab_dev is None:
+                elab_dev = torch.as_tensor(elab_np, device=device)
+            chunk_d, cand_d, qp, ql, qv = (
+                torch.as_tensor(x, device=device)
+                for x in (chunk, cand_ids, q_pos, q_lab, q_val)
+            )
+            valid = ops.embed_join(
+                chunk_d, torch.ones(r, dtype=torch.bool, device=device),
+                cand_d, torch.ones(cand_ids.size, dtype=torch.bool, device=device),
+                elab_dev, qp, ql, qv,
+            ).cpu().numpy()
+        r_idx, c_idx = np.nonzero(valid)
+        if r_idx.size:
+            new_rows.append(np.concatenate(
+                [chunk[r_idx], cand_ids[c_idx][:, None]], axis=1
+            ))
+    if not new_rows:
+        return np.zeros((0, t + 1), dtype=np.int32), elab_dev
+    return np.concatenate(new_rows, axis=0), elab_dev
+
+
+def bfs_join_search(
+    data: Graph,
+    query: Graph,
+    candidates: np.ndarray,
+    *,
+    order: Sequence[int] | None = None,
+    chunk_rows: int = 8192,
+    max_embeddings: int | None = None,
+    device=None,
+) -> np.ndarray:
+    """Enumerate all embeddings with the vectorized join plan.
+
+    The result table stays on the host; each level's validity grid is
+    evaluated in numpy when it has at most ``2^18`` (R·C·J) cells and by
+    ``embed_join`` on ``device`` otherwise.
+    """
+    dev = resolve_device(device)
+    cand = as_numpy(candidates)
+    n_q = query.n_vertices
+    q_adj = _host_adjacency(query)
+    elab_np = _dense_edge_labels(data, data.n_vertices)
+    elab_dev = None  # device copy made on the first level that needs it
+    order = _matching_order(order, cand, q_adj, n_q)
+    pos_of = {u: i for i, u in enumerate(order)}
+
+    # seed table with u_0's candidates
+    table = np.nonzero(cand[:, order[0]])[0].astype(np.int32).reshape(-1, 1)
+    for t in range(1, n_q):
+        u = order[t]
+        cand_ids = np.nonzero(cand[:, u])[0].astype(np.int32)
+        if table.shape[0] == 0 or cand_ids.size == 0:
+            return np.zeros((0, n_q), dtype=np.int64)
+        table, elab_dev = _host_join_level(
+            table, cand_ids, elab_np, elab_dev,
+            _level_constraints(q_adj, pos_of, u, t), chunk_rows, t, dev,
+        )
+    # truncation happens after the final level (covers single-vertex
+    # queries, whose seed table never enters the loop)
+    if max_embeddings is not None and table.shape[0] > max_embeddings:
+        table = table[:max_embeddings]
+    return _restore_query_order(table, order)
+
+
+def _restore_query_order(table: np.ndarray, order: Sequence[int]) -> np.ndarray:
+    """Table columns are in matching order; restore query-vertex order."""
+    out = np.zeros((table.shape[0], len(order)), dtype=np.int64)
+    for i, u in enumerate(order):
+        out[:, u] = table[:, i]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Device-resident two-phase join engine.
+# ---------------------------------------------------------------------------
+
+
+# per-dispatch (R·C·J) validity-cell budget for the row slices of a level
+_DEVICE_JOIN_CELLS = 1 << 24
+
+
+def _align_rows(n: int) -> int:
+    """128-row-aligned allocation for ``n`` live rows (at most 127 inert
+    rows ride along)."""
+    return max(128, -(-int(n) // 128) * 128)
+
+
+def empty_enum_report() -> dict:
+    """The zeroed two-phase telemetry schema ``device_join_search`` fills.
+
+    Every exit path leaves exactly these keys in ``report``:
+
+    * ``device_rounds`` — expansion rounds executed (all on the device);
+    * ``host_levels``   — always 0 (no level falls back to the host);
+    * ``count_seconds`` / ``scan_seconds`` / ``emit_seconds`` — per-phase
+      wall-clock totals across rounds (each phase ends in a device sync
+      when a report is requested);
+    * ``max_table_rows`` — peak true survivor count over all levels;
+    * ``max_emit_rows``  — peak allocated (128-aligned) table rows;
+    * ``scan_path``     — ``"device"``: the scan is an on-device cumsum;
+    * ``enum_shards``   — 1 (one device);
+    * ``emit_rows_max`` / ``emit_rows_min`` — emitted rows at the heaviest
+      level (equal on one device);
+    * ``rebalance_rounds`` / ``rebalance_rows_moved`` /
+      ``rebalance_seconds`` — 0 on one device;
+    * ``levels``        — per-level records ``{"level", "emit_rows",
+      "rebalanced", "rebalance_seconds"}``.
+    """
+    return obsv.EnumReport.empty().to_dict()
+
+
+def _level_record(level: int, emit_rows) -> dict:
+    """One ``report["levels"]`` entry (see ``empty_enum_report``)."""
+    return {
+        "level": level,
+        "emit_rows": [int(x) for x in emit_rows],
+        "rebalanced": False,
+        "rebalance_seconds": 0.0,
+    }
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def device_join_search(
+    data: Graph,
+    query: Graph,
+    candidates: np.ndarray,
+    *,
+    order: Sequence[int] | None = None,
+    max_embeddings: int | None = None,
+    report: dict | None = None,
+    device=None,
+) -> np.ndarray:
+    """Enumerate all embeddings with the two-phase device-resident join.
+
+    Bit-identical to ``bfs_join_search`` (same embeddings, same row order,
+    any valid ``order``).  The partial-embedding table stays on ``device``
+    and each level runs, over cell-budgeted row slices:
+
+    1. **count** — ``embed_join_count`` per slice, (R,) int32 survivors;
+    2. **scan**  — an on-device cumsum turns counts into exclusive slots;
+       only the level's total syncs to the host;
+    3. **emit**  — ``embed_join_emit`` writes each survivor's flat cell id
+       ``(row_base + r) * C + c`` (int64) at its slot of an exactly-sized,
+       128-aligned buffer, which one gather decodes into the next table.
+
+    ``report``: optional dict filled with the ``empty_enum_report()``
+    schema on every exit path; the phase timings sync the device after each
+    phase.  With an active tracer each level emits ``enum.count`` /
+    ``enum.scan`` / ``enum.emit`` spans.
+    """
+    dev = resolve_device(device)
+    cand = as_numpy(candidates)
+    n_q = query.n_vertices
+    q_adj = _host_adjacency(query)
+    elab_np = _dense_edge_labels(data, data.n_vertices)
+    elab_dev = None
+    order = _matching_order(order, cand, q_adj, n_q)
+    pos_of = {u: i for i, u in enumerate(order)}
+
+    stats = empty_enum_report()
+    stats["enum_shards"] = 1
+    stats["scan_path"] = "device"
+    if report is not None:
+        report.update(stats)
+
+    seed_ids = np.nonzero(cand[:, order[0]])[0].astype(np.int32)
+    n_rows = int(seed_ids.size)
+    r0 = _align_rows(n_rows)
+    table_dev = torch.as_tensor(
+        np.pad(seed_ids, (0, r0 - n_rows)).reshape(r0, 1), device=dev
+    )
+    stats["max_table_rows"] = n_rows
+    stats["max_emit_rows"] = r0
+    stats["emit_rows_max"] = n_rows
+    stats["emit_rows_min"] = n_rows
+
+    for t in range(1, n_q):
+        u = order[t]
+        cand_ids = np.nonzero(cand[:, u])[0].astype(np.int32)
+        if n_rows == 0 or cand_ids.size == 0:
+            if report is not None:
+                report.update(stats)
+            return np.zeros((0, n_q), dtype=np.int64)
+        q_pos, q_lab, q_val = _level_constraints(q_adj, pos_of, u, t)
+
+        # 128-aligned candidate pad; padded slots hold vertex 0 and are
+        # masked by cand_valid
+        c_pad = max(128, -(-cand_ids.size // 128) * 128)
+        if elab_dev is None:
+            elab_dev = torch.as_tensor(elab_np, device=dev)
+        j = int(q_pos.size)
+        cand_dev = torch.as_tensor(np.pad(cand_ids, (0, c_pad - cand_ids.size)),
+                                   device=dev)
+        cand_valid = torch.arange(c_pad, device=dev) < cand_ids.size
+        qp, ql, qv = (torch.as_tensor(x, device=dev) for x in (q_pos, q_lab, q_val))
+        stats["device_rounds"] += 1
+
+        # cell-budgeted row slices bound each launch's (R, C, J) work; the
+        # table allocation is a multiple of 128, so slices stay aligned
+        rows_per = _DEVICE_JOIN_CELLS // max(1, c_pad * j)
+        rows_per = max(256, 1 << max(0, rows_per.bit_length() - 1))
+        rows_per = min(rows_per, 4096)
+        active = table_dev
+        slices = []
+        for lo in range(0, n_rows, rows_per):
+            sl = active[lo : lo + rows_per]
+            n_live = min(n_rows - lo, rows_per)
+            row_valid = torch.arange(sl.shape[0], device=dev) < n_live
+            slices.append((lo, sl, row_valid))
+
+        # -- count: per-slice survivor counts, no table writes
+        t0 = time.perf_counter()
+        counts = torch.cat([
+            ops.embed_join_count(sl, rv, cand_dev, cand_valid, elab_dev,
+                                 qp, ql, qv)
+            for _, sl, rv in slices
+        ])
+        if report is not None:
+            _sync(dev)
+        t1 = time.perf_counter()
+        stats["count_seconds"] += t1 - t0
+        obsv.span_at("enum.count", t0, t1, level=t, rows=n_rows)
+
+        # -- scan: on-device exclusive prefix sum; one scalar syncs
+        t0 = time.perf_counter()
+        inclusive = counts.cumsum(0)  # int64
+        row_off = inclusive - counts
+        total = int(inclusive[-1])
+        t1 = time.perf_counter()
+        stats["scan_seconds"] += t1 - t0
+        obsv.span_at("enum.scan", t0, t1, level=t)
+
+        if total == 0:
+            table_dev = torch.zeros((1, t + 1), dtype=torch.int32, device=dev)
+            n_rows = 0
+            stats["levels"].append(_level_record(t, [0]))
+            continue
+
+        # -- emit: scatter survivors into the exactly-sized buffer, then
+        # decode cell ids into the next table with one gather
+        t0 = time.perf_counter()
+        out_cap = _align_rows(total)
+        idx_map = torch.zeros(out_cap, dtype=torch.int64, device=dev)
+        for lo, sl, rv in slices:
+            ops.embed_join_emit(idx_map, sl, rv, cand_dev, cand_valid,
+                                elab_dev, qp, ql, qv,
+                                row_off[lo : lo + sl.shape[0]], lo)
+        r_idx = idx_map // c_pad
+        c_idx = idx_map - r_idx * c_pad
+        new_table = torch.cat([active[r_idx], cand_dev[c_idx][:, None]], dim=1)
+        # slots past the total hold cell 0 (a valid address): zero them
+        slot_ok = torch.arange(out_cap, device=dev) < total
+        table_dev = torch.where(slot_ok[:, None], new_table, 0)
+        if report is not None:
+            _sync(dev)
+        t1 = time.perf_counter()
+        stats["emit_seconds"] += t1 - t0
+        obsv.span_at("enum.emit", t0, t1, level=t, rows=total)
+
+        n_rows = total
+        stats["max_table_rows"] = max(stats["max_table_rows"], total)
+        stats["max_emit_rows"] = max(stats["max_emit_rows"], out_cap)
+        stats["levels"].append(_level_record(t, [total]))
+        if total > stats["emit_rows_max"]:
+            stats["emit_rows_max"] = total
+            stats["emit_rows_min"] = total
+
+    n_keep = n_rows
+    if max_embeddings is not None:
+        n_keep = min(n_keep, max_embeddings)
+    table = table_dev[:n_keep].cpu().numpy()
+    if report is not None:
+        report.update(stats)
+    return _restore_query_order(table, order)
+
+
+def embeddings_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    """Set equality of embedding tables (row order independent)."""
+    if a.shape != b.shape:
+        return False
+    if a.size == 0:
+        return True
+    return {tuple(r) for r in a.tolist()} == {tuple(r) for r in b.tolist()}
