@@ -7,14 +7,19 @@
 Phases:
 
 1. device   — the card's name and power limit (nvidia-smi); no card, no run.
-2. build    — nvcc builds the embed-join kernels from ``csrc/``; prints
-              ptxas's resource lines and the build seconds.
-3. kernels  — each kernel against its plain PyTorch version at the shapes
-              of real join levels (recorded from a HUMAN query and a
-              join-heavy query) plus ragged edges; exact equality; each
-              kernel's device time (CUDA-graph replay), its eager wrapper
-              time and its plain version's eager time (CUDA events), and
-              its bound.
+2. build    — nvcc builds the three kernel sources (embed_join, cni_encode,
+              candidate_filter), one nvcc each, all started together;
+              prints ptxas's resource lines and the build seconds.
+3. kernels  — each kernel against its plain PyTorch version: the embed-join
+              kernels at the shapes of real join levels (recorded from a
+              HUMAN query and a join-heavy query), cni_encode and
+              candidate_filter (both modes) at the shapes of real ILGF
+              rounds (the scale query's and a HUMAN query's first round, and
+              a batched HUMAN round), plus ragged edges (saturated hubs,
+              degree-0 rows, rows past d_max, a prime row count).  Exact
+              outputs must be equal, log digests within 1e-5; each kernel's
+              device time (CUDA-graph replay), its eager wrapper time, its
+              plain version's eager time (CUDA events), and its bound.
 4. HUMAN    — ``SubgraphQueryEngine(g, enumerator="device")`` on the
               paper's HUMAN stand-in (4,675 V / 44 labels), four
               random-walk queries, each held bit for bit against the DFS
@@ -22,11 +27,28 @@ Phases:
 5. join     — the same on ``random_labeled_graph(8000, 40000, 8)`` with
               4-6-vertex sparse queries (join tables of thousands of rows).
 6. scale    — a uniform graph with LiveJournal's cardinalities
-              (4,847,571 V / 68,993,773 E / 200 labels), one 10-vertex
-              dense query; peak device memory, ILGF rounds, phase seconds.
-7. counts   — kernel launches during phases 4-6 (reset just before phase 4,
-              read just after phase 6); the count and emit kernels must have
-              launched.
+              (4,847,571 V / 68,993,773 E / 200 labels, generated once and
+              reused by phases 3 and 7), one 10-vertex dense query; peak
+              device memory, ILGF rounds, phase seconds.
+7. batch    — ``BatchQueryEngine(g, enumerator="device")``: HUMAN with 32
+              sparse random-walk queries of 10-14 vertices at max_batch 32,
+              and the scale graph with 8 dense 10-vertex queries.  Every
+              result equals the sequential engine and the DFS oracle as a
+              set of rows; rounds, filter and search seconds, peak memory;
+              then a torch.profiler view of the scale filter (one query's
+              ILGF, and the batch's lockstep fixed point): device busy
+              share and the device ops that take the most time.
+8. counts   — kernel launches of the main path alone: every count is set
+              to 0 just before each entry-point call (``query`` of the
+              device and host join engines, ``query_batch``) and read just
+              after, and the readings are summed per phase and path; the
+              checks around those calls (DFS oracle, sequential engine,
+              ``max_embeddings`` re-run, profiler) fall outside.  The
+              embed-join count and emit kernels, cni_encode and
+              candidate_filter must have launched on the device path of
+              phases 4-6 and on the batch path of phase 7, and the grid
+              kernel on phase 5's host path (the host join's large
+              levels).
 
 Any failure propagates: the script exits non-zero and prints no result.
 The last line of a passing run is
@@ -36,11 +58,13 @@ The last line of a passing run is
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -50,9 +74,37 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet), used for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
+# dense 10-vertex queries of the scale batch (phase 7); 8 holds its
+# (b, 2E) count-matrix temporaries (about 20 GB) well inside the card
+SCALE_BATCH = 8
 # 32-bit scalar rate outside the tensor cores (the float32 figure; the
 # kernels' integer compares run on the same CUDA cores)
 SCALAR_OPS_PER_S = 67e12
+
+
+class MainPath:
+    """Launch counts of the entry-point calls alone.  ``run`` sets every
+    count to 0, calls the entry point, reads the counts and adds them to
+    ``counts[(phase, path)]``; launches outside a ``run`` are never read."""
+
+    def __init__(self, kernel_ops):
+        self.kernel_ops = kernel_ops
+        self.phase = None
+        self.counts = {}
+
+    def read(self) -> dict:
+        return {k: v for m in self.kernel_ops
+                for k, v in m.launch_counts().items()}
+
+    def run(self, path: str, fn):
+        for m in self.kernel_ops:
+            m.reset_launches()
+        out = fn()
+        acc = self.counts.setdefault((self.phase, path),
+                                     dict.fromkeys(self.read(), 0))
+        for k, v in self.read().items():
+            acc[k] += v
+        return out
 
 
 def log(msg: str) -> None:
@@ -72,10 +124,16 @@ def phase_device() -> str:
     return name
 
 
-def phase_build(ops):
-    built = ops.library()
-    log(f"[2 build] {built.path.name}: {built.seconds:.2f} s")
-    log(built.log.strip())
+def phase_build(kernel_ops):
+    """Build every kernel source at once: one nvcc per source, in threads
+    (each waits on its own nvcc process)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kernel_ops)) as pool:
+        built = list(pool.map(lambda ops: ops.library(), kernel_ops))
+    for b in built:
+        log(f"[2 build] {b.path.name}: {b.seconds:.2f} s")
+        log(b.log.strip())
+    log(f"[2 build] all sources in {time.perf_counter() - t0:.2f} s")
     return built
 
 
@@ -284,6 +342,254 @@ def phase_kernels(ops, ref, search, core, graphs, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, filter half: cni_encode and candidate_filter
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def scale_graph(graphs, scale: float):
+    """The uniform graph with LiveJournal's cardinalities, generated once
+    (its host generation is most of the script's time) and shared by the
+    kernel checks, phase 6 and the batch phase."""
+    n_v, n_e = int(4_847_571 * scale), int(68_993_773 * scale)
+    t0 = time.perf_counter()
+    g = graphs.random_labeled_graph(n_v, n_e, 200, seed=7, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  scale graph (scale factor {scale}): {g.n_vertices} V / "
+        f"{g.n_edges} E after dedup / 200 labels, d_max "
+        f"{graphs.max_degree(g)}; host generation + upload "
+        f"{time.perf_counter() - t0:.1f} s")
+    return g
+
+
+def first_round(core, graphs, g, q):
+    """The operands of a query's first ILGF round on ``g``: the alive-masked
+    count rows (V, L), the data ords, d_max, max_p and the query digest."""
+    from repro_torch.core import labels
+    from repro_torch.core.ilgf import prepare_query
+
+    d_max = max(1, graphs.max_degree(g))
+    lm = labels.build_label_map(q)
+    max_p = core.default_max_p(d_max, lm.n_labels)
+    ords = labels.ord_of(lm, g.vlabels)
+    counts = labels.counts_matrix(g, lm, ords > 0)
+    return counts, ords, d_max, max_p, prepare_query(q, d_max, max_p).digest
+
+
+def batched_round(core, graphs, g, queries):
+    """The operands of a batched round: (B, V, L) counts of the stacked
+    queries' first round, the (B, V) ords, d_max, max_p, the (B, U) query
+    digests."""
+    from repro_torch.core import batch_engine as be
+    from repro_torch.core.labels import counts_matrix_from_ords
+
+    d_max = max(1, graphs.max_degree(g))
+    keys = {be.bucket_key(q, d_max) for q in queries}
+    l_pad = max(k[1] for k in keys)
+    u_pad = max(k[2] for k in keys)
+    max_p = core.default_max_p(d_max, l_pad)
+    qb = be.stack_queries(queries, g, d_max, max_p, u_pad, l_pad,
+                          be.ceil_pow2(len(queries)), device="cuda")
+    counts = counts_matrix_from_ords(g, qb.ords, l_pad, qb.ords > 0)
+    return counts, qb.ords, d_max, max_p, qb.digest
+
+
+def ragged_counts(counts, d_max: int):
+    """Edge rows on a real round's count rows, over a prime row count
+    (1,000,003, or all rows when there are fewer): saturated hubs (d_max
+    neighbours on the two top labels), every fifth row of degree 0, and
+    rows of degree past d_max (as a query row's can be)."""
+    n = min(counts.shape[0], 1_000_003)
+    c = counts[:n].clone()
+    hubs = min(2000, n // 4)
+    c[:hubs] = 0
+    c[:hubs, -1] = d_max // 2
+    c[:hubs, -2 if c.shape[1] > 1 else -1] += d_max - d_max // 2
+    c[hubs::5] = 0
+    c[hubs + 1:2 * hubs:5, 0] = d_max + 7
+    return c
+
+
+def log_err(got, want) -> float:
+    """Largest |got - want| over the finite entries; raises unless the
+    infinities agree in place and sign."""
+    fin = torch.isfinite(want)
+    if not bool((torch.isfinite(got) == fin).all()) or \
+            not bool((got[~fin] == want[~fin]).all()):
+        raise AssertionError("log digests disagree on which rows are infinite")
+    return float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def check_encode(enc_ops, enc_ref, name, counts, d_max, max_p):
+    deg_k, cni_k, log_k = enc_ops.cni_encode(counts, d_max, max_p)
+    deg_p, cni_p, log_p = enc_ref.cni_encode_ref(counts, d_max, max_p)
+    torch.cuda.synchronize()
+    errs = {"deg": int((deg_k.long() - deg_p.long()).abs().max()),
+            "cni": int((cni_k != cni_p).sum()),
+            "cni_log": log_err(log_k, log_p)}
+    n_sat = int((cni_p == 1 << 62).sum())
+    n_zero = int((deg_p == 0).sum())
+    n_over = int((deg_p > d_max).sum())
+    log(f"  cni_encode {name}: N={counts.shape[0]} L={counts.shape[-1]} "
+        f"d_max={d_max} max_p={max_p} saturated={n_sat} deg0={n_zero} "
+        f"past_d_max={n_over} errors={errs}")
+    if errs["deg"] or errs["cni"] or errs["cni_log"] > 1e-5:
+        raise AssertionError(f"cni_encode disagrees with its plain version on "
+                             f"{name}: {errs}")
+    return errs["cni_log"]
+
+
+def check_filter(cf_ops, cf_ref, name, data, query, mode):
+    cni = "cni" if mode == "exact" else "cni_log"
+    args = (data.ord_label, data.deg, getattr(data, cni),
+            query.ord_label, query.deg, getattr(query, cni))
+    got = cf_ops.candidate_filter(*args, mode=mode)
+    want = cf_ref.candidate_filter_ref(*args, mode=mode)
+    torch.cuda.synchronize()
+    diff = int((got != want).sum())
+    log(f"  candidate_filter {name} {mode}: grid {tuple(got.shape)}, "
+        f"{int(want.sum())} candidates, {diff} cells differ")
+    if diff:
+        raise AssertionError(f"candidate_filter disagrees with its plain "
+                             f"version on {name} ({mode}): {diff} cells")
+    return diff, args
+
+
+def plain_digest(enc_ref, counts, ords, d_max, max_p):
+    """Data digests from the plain version, fed to both filter routes."""
+    from repro_torch.core.filters import VertexDigest
+
+    deg, cni, cni_log = enc_ref.cni_encode_ref(
+        counts.reshape(-1, counts.shape[-1]), d_max, max_p)
+    shape = counts.shape[:-1]
+    return VertexDigest(ords.to(torch.int32), deg.reshape(shape),
+                        cni.reshape(shape), cni_log.reshape(shape))
+
+
+def boundary_digest(data, query):
+    """Log-mode edge cells on a real digest: data rows 0-7 take query
+    vertex 0's label and log values one float32 step either side of
+    cu -/+ tol, at equal and at larger degree."""
+    cu = float(query.cni_log[0]) if bool(torch.isfinite(query.cni_log[0])) else 2.5
+    cu32 = torch.tensor(cu, dtype=torch.float32)
+    tol = torch.tensor(1e-4, dtype=torch.float32) * cu32.abs().clamp_min(1.0)
+    lo, hi = cu32 - tol, cu32 + tol
+    vals = [torch.nextafter(lo, torch.tensor(-np.inf)), lo, hi,
+            torch.nextafter(hi, torch.tensor(np.inf))]
+    ords, deg, cni, log_d = (x.clone() for x in data)
+    q_ord = int(query.ord_label[0])
+    for k in range(8):
+        ords[k] = q_ord
+        deg[k] = int(query.deg[0]) + (k >= 4)
+        log_d[k] = vals[k % 4].to(log_d.device)
+    return type(data)(ords, deg, cni, log_d)
+
+
+def encode_bound(counts, d_max, max_p):
+    """Least time for one encode: the counts read once, 16 bytes written
+    per row, and each distinct table entry the rows need (12 bytes: int64
+    + float32) read once; against 4 operations per term."""
+    from repro_torch.core import cni as cni_mod
+
+    rows = counts.reshape(-1, counts.shape[-1])
+    prefix, valid, _ = cni_mod._descending_positions(rows, d_max)
+    idx = cni_mod._term_index(prefix, d_max, max_p)[valid]
+    seen = torch.zeros((d_max + 1) * (max_p + 1), dtype=torch.bool,
+                       device=rows.device)
+    seen[idx] = True
+    n_bytes = rows.numel() * 4 + rows.shape[0] * 16 + int(seen.sum()) * 12
+    n_ops = 4 * int(valid.sum())
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def filter_bound(args):
+    """Least time for one grid: each digest read once, the byte grid
+    written once; against a dozen compares per cell."""
+    ord_d, _, cni_d, ord_q, _, cni_q = args
+    cells = ord_d.numel() * ord_q.shape[-1]
+    n_bytes = (ord_d.numel() * (8 + cni_d.element_size())
+               + ord_q.numel() * (8 + cni_q.element_size()) + cells)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 12 * cells / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_filter_kernels(enc_ops, enc_ref, cf_ops, cf_ref, core, graphs, scale):
+    human = graphs.paper_dataset("HUMAN", device="cuda")
+    q_h = graphs.random_walk_query(human, 16, sparse=True, seed=4, device="cuda")
+    g_s = scale_graph(graphs, scale)
+    q_s = graphs.random_walk_query(g_s, 10, sparse=False, seed=3, device="cuda")
+    rounds = {
+        "scale_round1": first_round(core, graphs, g_s, q_s),
+        "HUMAN_round1": first_round(core, graphs, human, q_h),
+        "HUMAN_batch_round1": batched_round(core, graphs, human, [
+            graphs.random_walk_query(human, 10 + i % 4, sparse=True,
+                                     seed=100 + i, device="cuda")
+            for i in range(8)]),
+    }
+    log(f"[3 kernels] filter half: recorded the first ILGF round of the "
+        f"scale query, a HUMAN query and a batch of 8 HUMAN queries")
+    enc_err = 0.0
+    for name, (counts, _, d_max, max_p, _) in rounds.items():
+        enc_err = max(enc_err, check_encode(enc_ops, enc_ref, name, counts,
+                                            d_max, max_p))
+    counts, ords, d_max, max_p, q_dig = rounds["scale_round1"]
+    enc_err = max(enc_err, check_encode(enc_ops, enc_ref, "scale_ragged",
+                                        ragged_counts(counts, d_max), d_max,
+                                        max_p))
+    h_counts, _, h_dmax, h_maxp, _ = rounds["HUMAN_round1"]
+    enc_err = max(enc_err, check_encode(enc_ops, enc_ref, "HUMAN_ragged",
+                                        ragged_counts(h_counts, h_dmax),
+                                        h_dmax, h_maxp))
+
+    cf_diff = 0
+    grids = {}
+    for name, (counts, ords, d_max, max_p, q_dig) in rounds.items():
+        data = plain_digest(enc_ref, counts, ords, d_max, max_p)
+        for mode in ("exact", "log"):
+            diff, args = check_filter(cf_ops, cf_ref, name, data, q_dig, mode)
+            cf_diff = max(cf_diff, diff)
+            grids[(name, mode)] = args
+        if name == "scale_round1":
+            n = 1_000_003
+            cut = type(data)(*(x[:n].contiguous() for x in data))
+            edge = boundary_digest(cut, q_dig)
+            for mode in ("exact", "log"):
+                cf_diff = max(cf_diff, check_filter(
+                    cf_ops, cf_ref, "scale_ragged_boundary", edge, q_dig,
+                    mode)[0])
+
+    # times at the scale round (the main path's largest filter shapes)
+    counts, _, d_max, max_p, _ = rounds["scale_round1"]
+    timings = {}
+    fns = {
+        "cni_encode": (lambda: enc_ops.cni_encode(counts, d_max, max_p),
+                       lambda: enc_ref.cni_encode_ref(counts, d_max, max_p),
+                       encode_bound(counts, d_max, max_p),
+                       f"N={counts.shape[0]} L={counts.shape[1]} d_max={d_max}"),
+    }
+    for mode in ("exact", "log"):
+        args = grids[("scale_round1", mode)]
+        fns[f"candidate_filter_{mode}"] = (
+            functools.partial(cf_ops.candidate_filter, *args, mode=mode),
+            functools.partial(cf_ref.candidate_filter_ref, *args, mode=mode),
+            filter_bound(args), f"V={args[0].shape[0]} U={args[3].shape[0]}")
+    for name, (kern, plain, (bound_ms, bound_by), shape) in fns.items():
+        ms = device_ms(kern)
+        eager_ms = time_ms(kern, 50)
+        plain_ms = time_ms(plain, 5)
+        timings[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+        log(f"  time {name}: kernel {ms:.5f} ms on the device "
+            f"({eager_ms:.5f} ms per eager wrapper call), plain "
+            f"{plain_ms:.5f} ms per eager call, bound {bound_ms:.5f} ms "
+            f"({bound_by}) at {shape}")
+    return {"cni_encode": enc_err, "candidate_filter": cf_diff}, timings
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: the main path
 # ---------------------------------------------------------------------------
 
@@ -297,16 +603,16 @@ def oracle(core, graphs, engine, q):
     return old_ids[emb] if emb.size else emb
 
 
-def run_queries(core, graphs, g, queries, tag):
+def run_queries(main, core, graphs, g, queries, tag):
     eng_dev = core.SubgraphQueryEngine(g, enumerator="device")
     eng_host = core.SubgraphQueryEngine(g, enumerator="host")
     for n_q, sparse, seed in queries:
         q = graphs.random_walk_query(g, n_q, sparse=sparse, seed=seed, device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        emb, st = eng_dev.query(q)
+        emb, st = main.run("device", lambda: eng_dev.query(q))
         wall = time.perf_counter() - t0
-        emb_host, _ = eng_host.query(q)
+        emb_host, _ = main.run("host", lambda: eng_host.query(q))
         truth = oracle(core, graphs, eng_dev, q)
         enum = st.extras["enum"]
         log(f"  {tag} q{n_q} {'sparse' if sparse else 'dense'} seed={seed}: "
@@ -327,43 +633,138 @@ def run_queries(core, graphs, g, queries, tag):
             raise AssertionError(f"{tag} q{n_q}: max_embeddings={cap} prefix differs")
 
 
-def phase_human(core, graphs):
+def phase_human(main, core, graphs):
     g = graphs.paper_dataset("HUMAN", device="cuda")
     log(f"[4 HUMAN] {g.n_vertices} V / {g.n_edges} E / "
         f"{len(np.unique(g.vlabels.cpu().numpy()))} labels, "
         f"d_max {graphs.max_degree(g)}")
-    run_queries(core, graphs, g,
+    run_queries(main, core, graphs, g,
                 [(8, True, 1), (10, False, 2), (12, True, 3), (16, True, 4)],
                 "HUMAN")
 
 
-def phase_join(core, graphs):
+def phase_join(main, core, graphs):
     g = graphs.random_labeled_graph(8000, 40000, 8, seed=42, device="cuda")
     log(f"[5 join] {g.n_vertices} V / {g.n_edges} E / 8 labels")
-    run_queries(core, graphs, g, [(4, True, 1), (5, True, 2), (6, True, 3)],
-                "join")
+    run_queries(main, core, graphs, g,
+                [(4, True, 1), (5, True, 2), (6, True, 3)], "join")
 
 
-def phase_scale(core, graphs, scale: float):
-    n_v, n_e = int(4_847_571 * scale), int(68_993_773 * scale)
+def phase_scale(main, core, graphs, scale: float):
     log(f"[6 scale] uniform graph with LiveJournal cardinalities, scale "
-        f"factor {scale} -> {n_v} V / {n_e} E / 200 labels")
-    t0 = time.perf_counter()
-    g = graphs.random_labeled_graph(n_v, n_e, 200, seed=7, device="cuda")
-    torch.cuda.synchronize()
-    log(f"  host generation + upload {time.perf_counter() - t0:.1f} s, "
-        f"{g.n_edges} edges after dedup, d_max {graphs.max_degree(g)}")
+        f"factor {scale}")
+    g = scale_graph(graphs, scale)
     torch.cuda.reset_peak_memory_stats()
-    run_queries(core, graphs, g, [(10, False, 3)], "scale")
+    run_queries(main, core, graphs, g, [(10, False, 3)], "scale")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+
+def emb_set(emb) -> set:
+    return {tuple(int(x) for x in row) for row in emb}
+
+
+def run_batch(main, core, graphs, g, queries, tag, max_batch=32):
+    """One ``query_batch`` call, then each result against the sequential
+    engine and the DFS oracle, as sets of rows."""
+    engine = core.BatchQueryEngine(g, enumerator="device", max_batch=max_batch)
+    seq = core.SubgraphQueryEngine(g, enumerator="device")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = main.run("batch", lambda: engine.query_batch(queries))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    buckets = sorted({tuple(st.extras["batch"]["bucket"]) for _, st in results})
+    filt = sum(st.filter_seconds for _, st in results)
+    search = sum(st.search_seconds for _, st in results)
+    log(f"  {tag} batch of {len(queries)} at max_batch {max_batch}: wall "
+        f"{wall:.4f} s (filter {filt:.4f} s, search {search:.4f} s), rounds "
+        f"{[st.ilgf_iterations for _, st in results]}, buckets {buckets}, "
+        f"peak device memory {peak:.3f} GiB")
+    for i, (q, (emb, st)) in enumerate(zip(queries, results)):
+        want, _ = seq.query(q)
+        truth = oracle(core, graphs, seq, q)
+        log(f"    {tag} q{i} ({q.n_vertices} V): alive {st.vertices_after}/"
+            f"{st.vertices_before}, {st.n_embeddings} embeddings, batch "
+            f"{st.extras['batch']['batch_size']}, rounds {st.ilgf_iterations}")
+        if emb.shape[1] != q.n_vertices or emb.shape[0] == 0:
+            raise AssertionError(f"{tag} q{i}: shape {emb.shape} (random-walk "
+                                 f"queries match)")
+        if emb_set(emb) != emb_set(want):
+            raise AssertionError(f"{tag} q{i}: batch != sequential engine")
+        if emb_set(emb) != emb_set(truth):
+            raise AssertionError(f"{tag} q{i}: batch != DFS oracle")
+
+
+def phase_batch(main, core, graphs, scale: float):
+    human = graphs.paper_dataset("HUMAN", device="cuda")
+    # the full mix of benchmarks/batch_benches.py's serving workload:
+    # 32 sparse random-walk queries of 10-14 vertices, seeds 100 + i
+    rng = np.random.default_rng(100)
+    queries = [graphs.random_walk_query(human, int(rng.integers(10, 15)),
+                                        sparse=True, seed=100 + i, device="cuda")
+               for i in range(32)]
+    log(f"[7 batch] HUMAN, 32 sparse queries of 10-14 vertices")
+    run_batch(main, core, graphs, human, queries, "HUMAN")
+    g = scale_graph(graphs, scale)
+    queries = [graphs.random_walk_query(g, 10, sparse=False, seed=s, device="cuda")
+               for s in range(3, 3 + SCALE_BATCH)]
+    log(f"[7 batch] scale graph, {SCALE_BATCH} dense 10-vertex queries")
+    run_batch(main, core, graphs, g, queries, "scale")
+    profile_filters(core, graphs, g, queries)
+
+
+def profile(tag, fn, top=8):
+    """Run ``fn`` once under torch.profiler: wall time, device busy time
+    (the sum of the device-side events: kernels, copies, fills), the busy
+    share, and the device events that took the most time.  Operator rows
+    (``aten::…``, on the CPU side) are left out: they repeat their
+    kernels' device time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = [(e.key, e.count, e.self_device_time_total / 1e3)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ms for _, _, ms in ops)
+    log(f"  profile {tag}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall:.1f} %) under the profiler")
+    for key, count, ms in sorted(ops, key=lambda o: -o[2])[:top]:
+        log(f"    {ms:10.3f} ms  {count:6d} x  {key[:90]}")
+
+
+def profile_filters(core, graphs, g, queries):
+    """Where a filter round's device time goes at scale: one query's ILGF
+    fixed point, and the lockstep fixed point of the batch's stack."""
+    from repro_torch.core import batch_engine as be
+
+    profile("scale ilgf, 1 query", lambda: core.ilgf(g, queries[0]))
+    d_max = max(1, graphs.max_degree(g))
+    keys = {be.bucket_key(q, d_max) for q in queries}
+    l_pad, u_pad = max(k[1] for k in keys), max(k[2] for k in keys)
+    max_p = core.default_max_p(d_max, l_pad)
+    qb = be.stack_queries(queries, g, d_max, max_p, u_pad, l_pad,
+                          be.ceil_pow2(len(queries)), device="cuda")
+    profile(f"scale lockstep fixed point, {len(queries)} queries",
+            lambda: be.batched_ilgf_fixed_point(
+                g, qb, n_labels=l_pad, d_max=d_max, max_p=max_p,
+                variant="cni", max_iters=1000))
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                         help="comma-separated phase numbers to run")
     parser.add_argument("--scale", type=float, default=1.0,
-                        help="common factor on phase 6's V and E")
+                        help="common factor on the scale graph's V and E")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -373,45 +774,76 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import core, graphs
     from repro_torch.core import search
+    from repro_torch.kernels.candidate_filter import ops as cf_ops
+    from repro_torch.kernels.candidate_filter import ref as cf_ref
+    from repro_torch.kernels.cni_encode import ops as enc_ops
+    from repro_torch.kernels.cni_encode import ref as enc_ref
     from repro_torch.kernels.embed_join import ops, ref
+
+    kernel_ops = (ops, enc_ops, cf_ops)
+    main = MainPath(kernel_ops)
 
     t_start = time.perf_counter()
     kind = phase_device()
-    phase_build(ops)
-    max_err = timings = None
+    phase_build(kernel_ops)
+    max_err, timings = {}, {}
     if 3 in phases:
-        max_err, timings = phase_kernels(ops, ref, search, core, graphs, "cuda")
-    ops.reset_launches()
-    per_phase = {}
-    for num, fn in ((4, lambda: phase_human(core, graphs)),
-                    (5, lambda: phase_join(core, graphs)),
-                    (6, lambda: phase_scale(core, graphs, args.scale))):
+        err, tim = phase_kernels(ops, ref, search, core, graphs, "cuda")
+        max_err.update(err)
+        timings.update(tim)
+        err, tim = phase_filter_kernels(enc_ops, enc_ref, cf_ops, cf_ref, core,
+                                        graphs, args.scale)
+        max_err.update(err)
+        timings.update(tim)
+    for num, fn in ((4, lambda: phase_human(main, core, graphs)),
+                    (5, lambda: phase_join(main, core, graphs)),
+                    (6, lambda: phase_scale(main, core, graphs, args.scale)),
+                    (7, lambda: phase_batch(main, core, graphs, args.scale))):
         if num in phases:
-            before = ops.launch_counts()
+            main.phase = num
             t0 = time.perf_counter()
             fn()
-            after = ops.launch_counts()
-            per_phase[num] = {k: after[k] - before[k] for k in after}
-            log(f"  phase {num}: {time.perf_counter() - t0:.1f} s, "
-                f"launches {per_phase[num]}")
-    launches = ops.launch_counts()
-    if 7 in phases:
-        log(f"[7 counts] launches during phases 4-6: {launches}")
-        for name in ("embed_join_count", "embed_join_emit", "embed_join_grid"):
-            if launches[name] == 0:
-                raise AssertionError(f"{name} never launched on the main path")
-    if timings is not None:
+            log(f"  phase {num}: {time.perf_counter() - t0:.1f} s, launches "
+                f"{ {path: c for (n, path), c in main.counts.items() if n == num} }")
+    launches = {k: sum(c[k] for c in main.counts.values()) for k in main.read()}
+    if 8 in phases:
+        log(f"[8 counts] main-path launches per (phase, path): {main.counts}; "
+            f"total {launches}")
+        # the device join and the batch engine run the filter kernels and
+        # the device join's count and emit kernels; the grid kernel runs in
+        # the host join's large levels, which only phase 5's tables reach
+        path = ("embed_join_count", "embed_join_emit", "cni_encode",
+                "candidate_filter")
+        required = {(4, "device"): path, (5, "device"): path,
+                    (5, "host"): ("embed_join_grid",), (6, "device"): path,
+                    (7, "batch"): path}
+        for (num, entry), names in required.items():
+            for name in names:
+                if num in phases and main.counts[(num, entry)][name] == 0:
+                    raise AssertionError(
+                        f"{name} never launched on phase {num}'s {entry} path")
+    if 3 in phases:
+        timings["candidate_filter"] = timings["candidate_filter_exact"]
         kernels = []
-        for name, replaces in (
-            ("embed_join_count", "src/repro/kernels/embed_join/kernel.py:174"),
-            ("embed_join_grid", "src/repro/kernels/embed_join/kernel.py:129"),
-            ("embed_join_emit", "src/repro/kernels/embed_join/ops.py:155"),
+        for name, source, replaces in (
+            ("embed_join_count", "embed_join/csrc/embed_join.cu",
+             "src/repro/kernels/embed_join/kernel.py:174"),
+            ("embed_join_grid", "embed_join/csrc/embed_join.cu",
+             "src/repro/kernels/embed_join/kernel.py:129"),
+            ("embed_join_emit", "embed_join/csrc/embed_join.cu",
+             "src/repro/kernels/embed_join/ops.py:155"),
+            ("cni_encode", "cni_encode/csrc/cni_encode.cu",
+             "src/repro/kernels/cni_encode/kernel.py:62"),
+            ("candidate_filter", "candidate_filter/csrc/candidate_filter.cu",
+             "src/repro/kernels/candidate_filter/kernel.py:46"),
         ):
             kernels.append({
                 "name": name, "route": "cuda",
-                "source": "src/repro_torch/kernels/embed_join/csrc/embed_join.cu",
+                "source": f"src/repro_torch/kernels/{source}",
                 "replaces": replaces, "launches": launches[name],
-                "max_abs_err": max_err[name], **timings[name],
+                "max_abs_err": max_err[name],
+                **{k: timings[name][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                 "library_ms": None,
             })
         log(json.dumps({"kernels": kernels}))

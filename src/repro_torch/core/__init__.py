@@ -1,5 +1,6 @@
 """CNI encoding, ILGF filtering and search, ported to PyTorch."""
 
+from repro_torch.core.batch_engine import BatchQueryEngine, batched_ilgf_round
 from repro_torch.core.cni import (
     SAT64,
     cni_from_counts,
@@ -18,9 +19,10 @@ from repro_torch.core.search import (
 )
 
 __all__ = [
-    "SAT64", "IlgfResult", "QueryStats", "SubgraphQueryEngine",
-    "bfs_join_search", "cni_from_counts", "cni_log_from_counts",
-    "default_max_p", "device_join_search", "embeddings_equal",
-    "empty_enum_report", "greedy_matching_order", "host_dfs_search", "ilgf",
-    "one_shot_filter", "search_filtered",
+    "SAT64", "BatchQueryEngine", "IlgfResult", "QueryStats",
+    "SubgraphQueryEngine", "batched_ilgf_round", "bfs_join_search",
+    "cni_from_counts", "cni_log_from_counts", "default_max_p",
+    "device_join_search", "embeddings_equal", "empty_enum_report",
+    "greedy_matching_order", "host_dfs_search", "ilgf", "one_shot_filter",
+    "search_filtered",
 ]

@@ -142,3 +142,61 @@ def cni_log_from_counts(counts: torch.Tensor, d_max: int, max_p: int) -> torch.T
     s = torch.where(valid, torch.exp(terms - m_safe[:, None]), 0.0).sum(-1)
     out = m_safe + torch.log(s.clamp_min(1e-30))
     return torch.where(deg > 0, out, -torch.inf).reshape(batch_shape)
+
+
+def cni_from_counts_np(counts: np.ndarray, d_max: int, max_p: int):
+    """Host (numpy) twin of the device encode: (N, L) count rows ->
+    (cni (N,) int64, cni_log (N,) float32, deg (N,) int32).
+
+    The same saturated Pascal table, ``min(p, max_p)`` clip and sticky
+    ``min(acc + term, SAT64)`` add as the device, so host query digests
+    (batch assembly) compare bit for bit against device data digests.  Rows
+    whose float64 term-sum shadow stays below SAT64 / 2 take a plain uint64
+    sum (partial sums are monotone, so no saturating add can have fired);
+    the others replay the sticky saturating accumulation.  Every value is
+    at most 2^62, so the int64 result equals the reference's uint64 one.
+    """
+    counts = np.asarray(counts)
+    n, L = counts.shape
+    deg_all = counts.sum(axis=1).astype(np.int32)
+    if n == 0 or d_max <= 0:
+        return np.zeros(n, np.int64), np.full(n, -np.inf, np.float32), deg_all
+    table = _pascal_table_np(d_max, max_p)  # uint64, saturated at SAT64
+    log_t = _log_hbar_np(d_max, max_p)
+
+    # descending expansion across all rows: label at position j = first
+    # ccum bin > j
+    desc = counts[:, ::-1]
+    ccum = np.cumsum(desc, axis=1)                              # (N, L)
+    posr = np.arange(d_max)
+    idx = (ccum[:, None, :] <= posr[None, :, None]).sum(-1)     # (N, D)
+    lab = np.maximum(L - idx, 0)
+    deg = ccum[:, -1]
+    valid = posr[None, :] < deg[:, None]
+    lab = np.where(valid, lab, 0)
+    prefix = np.minimum(np.cumsum(lab, axis=1), max_p)          # (N, D)
+    q_idx = np.arange(1, d_max + 1)
+    terms = np.where(valid, table[q_idx[None, :], prefix], 0)   # uint64
+
+    shadow_total = np.cumsum(terms.astype(np.float64), axis=1)[:, -1]
+    cni_u64 = terms.sum(axis=1, dtype=np.uint64)
+    for v in np.nonzero(shadow_total >= float(SAT64) * 0.5)[0]:
+        acc = 0
+        for j in range(1, min(int(deg[v]), d_max) + 1):
+            acc = min(acc + int(table[j, prefix[v, j - 1]]), SAT64)
+        cni_u64[v] = acc
+
+    log_terms = np.where(valid, log_t[q_idx[None, :], prefix], -np.inf)
+    log_terms = log_terms.astype(np.float32)
+    m = log_terms.max(axis=1, initial=-np.inf)
+    m_safe = np.where(np.isfinite(m), m, np.float32(0.0))
+    s = np.sum(
+        np.where(valid, np.exp(log_terms - m_safe[:, None]), 0.0),
+        axis=1, dtype=np.float32,
+    )
+    cni_log = np.where(
+        deg > 0,
+        m_safe + np.log(np.maximum(s, np.float32(1e-30))),
+        -np.inf,
+    ).astype(np.float32)
+    return cni_u64.astype(np.int64), cni_log, deg_all

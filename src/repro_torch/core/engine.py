@@ -118,6 +118,25 @@ def _not_in_this_slice(what: str, item: str) -> NotImplementedError:
     )
 
 
+def check_engine_args(data, mesh, planner, enumerator: str) -> None:
+    """The engines' shared argument checks: a plain port ``Graph`` only
+    (other sources, ``mesh=`` and ``planner=`` name their ROADMAP item)
+    and a known enumerator."""
+    if not isinstance(data, Graph):
+        raise _not_in_this_slice(
+            f"a {type(data).__name__} data source",
+            "7 (GraphStore / GraphSnapshot and their store_prefilter index) "
+            "or item 10 (out-of-core tier)")
+    if mesh is not None:
+        raise _not_in_this_slice("mesh=", "11 (multi-device)")
+    if planner is not None:
+        raise _not_in_this_slice("planner=", "5 (planner)")
+    if enumerator not in ("host", "device"):
+        raise ValueError(
+            f"enumerator must be 'host' or 'device', got {enumerator!r}"
+        )
+
+
 class SubgraphQueryEngine:
     """CNI-filter + join-search engine over one in-memory data graph.
 
@@ -145,18 +164,7 @@ class SubgraphQueryEngine:
         enumerator: Literal["host", "device"] = "host",
         device=None,
     ):
-        if not isinstance(data, Graph):
-            raise _not_in_this_slice(
-                f"a {type(data).__name__} data source (GraphStore / "
-                "GraphSnapshot)", "7 (mutable store and incremental index)")
-        if mesh is not None:
-            raise _not_in_this_slice("mesh=", "11 (multi-device)")
-        if planner is not None:
-            raise _not_in_this_slice("planner=", "5 (planner)")
-        if enumerator not in ("host", "device"):
-            raise ValueError(
-                f"enumerator must be 'host' or 'device', got {enumerator!r}"
-            )
+        check_engine_args(data, mesh, planner, enumerator)
         self.device = resolve_device(device)
         self.data = graph_to(data, self.device)
         self._host_data = to_host(self.data)  # search re-reads fields often

@@ -15,12 +15,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import cni as cni_mod
-from repro_torch.core.cni import LOG_SAT64, SAT64
-
-# unsaturated rows within this margin of LOG_SAT64 are also treated as
-# saturated — pass-through is monotone-weaker, hence always sound
-_LOG_SAT_THRESH = LOG_SAT64 - 1e-3
+from repro_torch.kernels.candidate_filter import ops as match_ops
+from repro_torch.kernels.cni_encode import ops as encode_ops
 
 
 class VertexDigest(NamedTuple):
@@ -34,12 +30,11 @@ class VertexDigest(NamedTuple):
 
 def make_digest(counts: torch.Tensor, ord_label: torch.Tensor, d_max: int,
                 max_p: int) -> VertexDigest:
-    return VertexDigest(
-        ord_label=ord_label.to(torch.int32),
-        deg=counts.sum(-1).to(torch.int32),
-        cni=cni_mod.cni_from_counts(counts, d_max, max_p),
-        cni_log=cni_mod.cni_log_from_counts(counts, d_max, max_p),
-    )
+    """Digest every count row (..., L): the cni_encode kernel on a CUDA
+    tensor, its plain version on a CPU one."""
+    deg, cni, cni_log = encode_ops.cni_encode(counts, d_max, max_p)
+    return VertexDigest(ord_label=ord_label.to(torch.int32), deg=deg,
+                        cni=cni, cni_log=cni_log)
 
 
 def label_match(data: VertexDigest, query: VertexDigest) -> torch.Tensor:
@@ -57,17 +52,12 @@ def cni_match(data: VertexDigest, query: VertexDigest) -> torch.Tensor:
     """Corrected Algorithm 3 on the exact digest, (..., V, U) bool.
 
     When either side is saturated the CNI comparison degenerates to the
-    label+degree filters (sound: saturation is monotone).
+    label+degree filters (sound: saturation is monotone).  The
+    candidate_filter kernel on CUDA tensors, its plain version on CPU ones.
     """
-    lab = label_match(data, query)
-    dv = data.deg[..., :, None]
-    du = query.deg[..., None, :]
-    cv = data.cni[..., :, None]
-    cu = query.cni[..., None, :]
-    sat = (cv == SAT64) | (cu == SAT64)
-    strict = (dv > du) & ((cv >= cu) | sat)
-    equal = (dv == du) & ((cv == cu) | sat)
-    return lab & (strict | equal)
+    return match_ops.candidate_filter(
+        data.ord_label, data.deg, data.cni,
+        query.ord_label, query.deg, query.cni, mode="exact")
 
 
 def cni_match_log(data: VertexDigest, query: VertexDigest,
@@ -77,19 +67,9 @@ def cni_match_log(data: VertexDigest, query: VertexDigest,
     At/above ``LOG_SAT64`` the comparison falls back to the label+degree
     filters, as the exact path does at SAT64.
     """
-    lab = label_match(data, query)
-    dv = data.deg[..., :, None]
-    du = query.deg[..., None, :]
-    cv = data.cni_log[..., :, None]
-    cu = query.cni_log[..., None, :]
-    tol = eps * cu.abs().clamp_min(1.0)
-    ge = cv >= cu - tol
-    eq = (cv - cu).abs() <= tol
-    sat = (cv >= _LOG_SAT_THRESH) | (cu >= _LOG_SAT_THRESH)
-    both_empty = (dv == 0) & (du == 0)
-    strict = (dv > du) & (ge | sat)
-    equal = (dv == du) & (eq | both_empty | sat)
-    return lab & (strict | equal)
+    return match_ops.candidate_filter(
+        data.ord_label, data.deg, data.cni_log,
+        query.ord_label, query.deg, query.cni_log, mode="log", eps=eps)
 
 
 def nlf_match(counts_data: torch.Tensor, counts_query: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Typed enumeration reports (the port's copy of the reference's
-``EnumReport``/``EnumLevel`` schema, cut to what this package fills).
+"""Typed telemetry reports (the port's copy of the reference's
+``EnumReport``/``EnumLevel``/``BatchReport`` schema, cut to what this
+package fills).
 
 Each report is a ``Mapping``, so ``report["device_rounds"]`` and
 ``dict(report)`` behave as the plain dicts the searchers fill; ``from_dict``
@@ -187,3 +188,24 @@ class EnumReport(Report):
             rebalance_rounds=0, rebalance_rows_moved=0,
             rebalance_seconds=0.0, levels=[],
         )
+
+
+@dataclass(eq=False)
+class BatchReport(Report):
+    """``stats.extras["batch"]`` — shape-bucket placement of one query."""
+
+    bucket: tuple
+    batch_size: int
+
+    def _check_bucket(self, v):
+        if not (isinstance(v, tuple) and len(v) == 3):
+            raise ValueError(
+                f"BatchReport.bucket: expected (d_max, l_pad, u_pad), "
+                f"got {v!r}"
+            )
+
+    def __post_init__(self):
+        object.__setattr__(
+            self, "bucket", tuple(int(x) for x in self.bucket)
+        )
+        super().__post_init__()

@@ -10,8 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import SubgraphQueryEngine, device_join_search
+from repro_torch.core import BatchQueryEngine, SubgraphQueryEngine, device_join_search
+from repro_torch.core.cni import LOG_SAT64, default_max_p
 from repro_torch.graphs import random_labeled_graph, random_walk_query, to_host
+from repro_torch.kernels.candidate_filter import ops as cf_ops
+from repro_torch.kernels.candidate_filter import ref as cf_ref
+from repro_torch.kernels.cni_encode import ops as enc_ops
+from repro_torch.kernels.cni_encode import ref as enc_ref
 from repro_torch.kernels.embed_join import ops, ref
 
 pytestmark = pytest.mark.gpu
@@ -85,3 +90,123 @@ def test_engine_on_card_equals_cpu(cuda, enumerator):
     np.testing.assert_array_equal(got, want)
     assert s_gpu.ilgf_iterations == s_cpu.ilgf_iterations
     assert s_gpu.candidate_pairs == s_cpu.candidate_pairs
+
+
+def random_counts(rng, n_rows, n_labels, d_max, *, hubs=0, over=0):
+    """Count rows with row sums <= d_max, a zero row every seventh, ``hubs``
+    saturating rows (d_max neighbours of the top label) and ``over`` rows
+    whose degree exceeds d_max (as a query row's can)."""
+    counts = rng.multinomial(d_max, np.ones(n_labels) / n_labels,
+                             size=n_rows).astype(np.int32)
+    counts = (counts * rng.random((n_rows, 1))).astype(np.int32)
+    counts[::7] = 0
+    counts[:hubs] = 0
+    counts[:hubs, -1] = d_max
+    counts[hubs:hubs + over, -1] = d_max + 5
+    return counts
+
+
+ENCODE_CASES = [  # (rows, labels, d_max, hubs, over)
+    (8, 1, 1, 0, 2), (257, 3, 8, 0, 2), (1013, 2, 64, 40, 3),
+    (4099, 6, 59, 100, 10), (300, 4, 200, 20, 5), (70001, 16, 70, 500, 7),
+]
+
+
+@pytest.mark.parametrize("case", ENCODE_CASES)
+def test_cni_encode_equals_plain_version(cuda, case):
+    n, n_labels, d_max, hubs, over = case
+    counts = random_counts(np.random.default_rng(n), n, n_labels, d_max,
+                           hubs=hubs, over=over)
+    max_p = default_max_p(d_max, n_labels)
+    x = torch.as_tensor(counts, device=cuda)
+    before = enc_ops.cni_encode.launches
+    deg, cni, cni_log = enc_ops.cni_encode(x, d_max, max_p)
+    assert enc_ops.cni_encode.launches == before + 1
+    deg_p, cni_p, log_p = enc_ref.cni_encode_ref(x, d_max, max_p)
+    torch.testing.assert_close(deg, deg_p, rtol=0, atol=0)
+    torch.testing.assert_close(cni, cni_p, rtol=0, atol=0)
+    # float32 logsumexp summed in another order (the kernel in position
+    # order, the plain version by torch's reduction): 1e-5 absolute, or two
+    # float32 ulps (2^-22 relative) where the digest exceeds 64 and one ulp
+    # is already 7.6e-6 or more (long rows at d_max 70-200 reach 130+)
+    torch.testing.assert_close(cni_log, log_p, rtol=2.0**-22, atol=1e-5)
+    if hubs:
+        assert bool((cni[:hubs] == 1 << 62).all())  # the saturated corner is hit
+    assert bool(torch.isneginf(cni_log[deg == 0]).all())
+
+
+def test_cni_encode_batched_shape(cuda):
+    counts = random_counts(np.random.default_rng(3), 3 * 500, 4, 30)
+    x = torch.as_tensor(counts.reshape(3, 500, 4), device=cuda)
+    deg, cni, cni_log = enc_ops.cni_encode(x, 30, default_max_p(30, 4))
+    assert deg.shape == cni.shape == cni_log.shape == (3, 500)
+    _, cni_flat, _ = enc_ops.cni_encode(x.reshape(-1, 4), 30, default_max_p(30, 4))
+    torch.testing.assert_close(cni.reshape(-1), cni_flat, rtol=0, atol=0)
+
+
+def random_digests(rng, lead, n, n_labels, mode):
+    """Digests with shared values across sides (equal-digest cells),
+    saturated entries and, in log mode, values one float32 step either side
+    of the eps boundary of a query value."""
+    ords = rng.integers(0, n_labels + 1, size=lead + (n,)).astype(np.int32)
+    deg = rng.integers(0, 6, size=lead + (n,)).astype(np.int32)
+    if mode == "exact":
+        cni = rng.integers(0, 50, size=lead + (n,)).astype(np.int64)
+        cni[rng.random(cni.shape) < 0.1] = 1 << 62
+    else:
+        cni = (rng.integers(0, 40, size=lead + (n,)) / 4.0).astype(np.float32)
+        cni[rng.random(cni.shape) < 0.05] = np.float32(LOG_SAT64)
+        cni[rng.random(cni.shape) < 0.05] = -np.inf
+    return ords, deg, cni
+
+
+def boundary_cells(data, query):
+    """In place: data rows 0-7 carry query vertex 0's label and log values
+    one float32 step either side of cu - tol and cu + tol (tol = 1e-4 *
+    max(1, |cu|)), at equal degree (rows 0-3) and at a larger one (4-7)."""
+    od, dd, cd = data
+    oq, dq, cq = query
+    oq[..., 0] = np.maximum(oq[..., 0], 1)
+    cq[..., 0] = np.where(np.isfinite(cq[..., 0]), cq[..., 0], 2.5)
+    cu = cq[..., 0]
+    tol = np.float32(1e-4) * np.maximum(np.float32(1), np.abs(cu))
+    lo, hi = cu - tol, cu + tol
+    vals = [np.nextafter(lo, -np.inf), lo, hi, np.nextafter(hi, np.inf)]
+    for k in range(8):
+        od[..., k] = oq[..., 0]
+        dd[..., k] = dq[..., 0] + (k >= 4)
+        cd[..., k] = vals[k % 4]
+
+
+@pytest.mark.parametrize("mode", ["exact", "log"])
+@pytest.mark.parametrize("lead,v,u", [((), 1000, 7), ((), 33, 1), ((4,), 2051, 16)])
+def test_candidate_filter_equals_plain_version(cuda, mode, lead, v, u):
+    rng = np.random.default_rng(v + u)
+    data = random_digests(rng, lead, v, 3, mode)
+    query = random_digests(rng, lead, u, 3, mode)
+    if mode == "log":
+        boundary_cells(data, query)
+    args = [torch.as_tensor(a, device=cuda) for a in (*data, *query)]
+    before = cf_ops.candidate_filter.launches
+    got = cf_ops.candidate_filter(*args, mode=mode)
+    assert cf_ops.candidate_filter.launches == before + 1
+    want = cf_ref.candidate_filter_ref(*args, mode=mode)
+    assert got.shape == lead + (v, u)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("variant", ["cni", "cni_log"])
+def test_batch_engine_on_card_equals_cpu(cuda, variant):
+    g = random_labeled_graph(2000, 8000, 8, n_edge_labels=2, seed=42, device="cpu")
+    queries = [random_walk_query(g, 5 + i % 4, sparse=bool(i % 2), seed=70 + i,
+                                 device="cpu") for i in range(6)]
+    want = BatchQueryEngine(g, filter_variant=variant, device="cpu").query_batch(queries)
+    enc0, cf0 = enc_ops.cni_encode.launches, cf_ops.candidate_filter.launches
+    got = BatchQueryEngine(g, filter_variant=variant,
+                           enumerator="device").query_batch(queries)
+    assert enc_ops.cni_encode.launches > enc0
+    assert cf_ops.candidate_filter.launches > cf0
+    for (e_gpu, s_gpu), (e_cpu, s_cpu) in zip(got, want):
+        np.testing.assert_array_equal(e_gpu, e_cpu)
+        assert s_gpu.ilgf_iterations == s_cpu.ilgf_iterations
+        assert s_gpu.candidate_pairs == s_cpu.candidate_pairs
