@@ -7,17 +7,23 @@
 Phases:
 
 1. device   — the card's name and power limit (nvidia-smi); no card, no run.
-2. build    — nvcc builds the three kernel sources (embed_join, cni_encode,
-              candidate_filter), one nvcc each, all started together;
-              prints ptxas's resource lines and the build seconds.
+2. build    — nvcc builds the four kernel sources (embed_join, cni_encode,
+              candidate_filter, cni_update), one nvcc each, all started
+              together; prints ptxas's resource lines and the build seconds.
 3. kernels  — each kernel against its plain PyTorch version: the embed-join
               kernels at the shapes of real join levels (recorded from a
               HUMAN query and a join-heavy query), cni_encode and
               candidate_filter (both modes) at the shapes of real ILGF
               rounds (the scale query's and a HUMAN query's first round, and
               a batched HUMAN round), plus ragged edges (saturated hubs,
-              degree-0 rows, rows past d_max, a prime row count).  Exact
-              outputs must be equal, log digests within 1e-5; each kernel's
+              degree-0 rows, rows past d_max, a prime row count), and
+              cni_update at the scale store's real frontier (the first
+              batch of phase 9's stream: F rows x 200 labels) with that
+              batch's delta and with a zero delta, plus a ragged copy; the
+              update's digests must also equal cni_encode of its new rows
+              bit for bit.  Exact outputs must be equal, log digests within
+              1e-5 (cni_update's, whose values reach the hundreds: 1e-5 or
+              two float32 ulps, as the GPU tests allow); each kernel's
               device time (CUDA-graph replay), its eager wrapper time, its
               plain version's eager time (CUDA events), and its bound.
 4. HUMAN    — ``SubgraphQueryEngine(g, enumerator="device")`` on the
@@ -40,15 +46,45 @@ Phases:
               share and the device ops that take the most time.
 8. counts   — kernel launches of the main path alone: every count is set
               to 0 just before each entry-point call (``query`` of the
-              device and host join engines, ``query_batch``) and read just
+              device and host join engines, ``query_batch``, and phase 9's
+              ``GraphStore.from_graph`` + ``attach_index``, ``apply``, and
+              the store-backed ``query``/``query_batch``) and read just
               after, and the readings are summed per phase and path; the
               checks around those calls (DFS oracle, sequential engine,
-              ``max_embeddings`` re-run, profiler) fall outside.  The
-              embed-join count and emit kernels, cni_encode and
-              candidate_filter must have launched on the device path of
-              phases 4-6 and on the batch path of phase 7, and the grid
-              kernel on phase 5's host path (the host join's large
-              levels).
+              ``max_embeddings`` re-run, scratch rebuild, profiler) fall
+              outside.  The embed-join count and emit kernels, cni_encode
+              and candidate_filter must have launched on the device path of
+              phases 4-6 and on the batch path of phase 7, the grid kernel
+              on phase 5's host path (the host join's large levels),
+              cni_update on phase 9's apply path, and the filter and join
+              kernels on its store-backed query and batch paths.
+9. store    — ``GraphStore`` + ``IncrementalIndex`` on the card: the
+              join-heavy graph with ``random_update_batches(.., 8, 4096,
+              delete_frac=0.35, seed=1)``, and the scale graph seeded as a
+              store (d_max 64, max_p 4096) taking 16 batches of 65,536
+              records at 35 % deletes (deletes drawn from alive edges,
+              inserts uniform non-edges; drawn here, vectorised, each
+              against the store as it stands).  Before the join-heavy
+              stream, cni_update is held against its plain version on that
+              store's first real frontier, which must hold live rows (a
+              real delta, a digest neither 0 nor SAT64; the scale
+              frontier's rows are saturated).  Per batch the apply time,
+              split into the host edge table and the index's maintenance;
+              a 17th batch, outside the measured stream, under
+              torch.profiler.
+              After the stream the index must equal a scratch rebuild bit
+              for bit (counts, degrees, exact and log digests); the
+              IndexStats are printed; then
+              ``SubgraphQueryEngine(store, enumerator="device",
+              planner=QueryPlanner.for_data(store))`` answers phase 5's
+              (join-heavy) or phase 6's (scale) query shapes, drawn on the
+              updated graph, each equal as a set of rows to the plain
+              engine on the snapshot graph and to the DFS oracle, and
+              ``BatchQueryEngine(store)`` answers them as one batch; the
+              scale query's ``store_prefilter`` split into its host ords,
+              ``store_digest`` and the ILGF from its mask against the plain
+              ILGF (which must reach the same mask), and profiled without
+              and with a digest cache; peak device memory.
 
 Any failure propagates: the script exits non-zero and prints no result.
 The last line of a passing run is
@@ -96,12 +132,12 @@ class MainPath:
         return {k: v for m in self.kernel_ops
                 for k, v in m.launch_counts().items()}
 
-    def run(self, path: str, fn):
+    def run(self, path: str, fn, phase=None):
         for m in self.kernel_ops:
             m.reset_launches()
         out = fn()
-        acc = self.counts.setdefault((self.phase, path),
-                                     dict.fromkeys(self.read(), 0))
+        key = (self.phase if phase is None else phase, path)
+        acc = self.counts.setdefault(key, dict.fromkeys(self.read(), 0))
         for k, v in self.read().items():
             acc[k] += v
         return out
@@ -485,10 +521,11 @@ def boundary_digest(data, query):
     return type(data)(ords, deg, cni, log_d)
 
 
-def encode_bound(counts, d_max, max_p):
+def encode_bound(counts, d_max, max_p, extra_bytes: int = 0):
     """Least time for one encode: the counts read once, 16 bytes written
     per row, and each distinct table entry the rows need (12 bytes: int64
-    + float32) read once; against 4 operations per term."""
+    + float32) read once, plus ``extra_bytes``; against 4 operations per
+    term."""
     from repro_torch.core import cni as cni_mod
 
     rows = counts.reshape(-1, counts.shape[-1])
@@ -497,7 +534,8 @@ def encode_bound(counts, d_max, max_p):
     seen = torch.zeros((d_max + 1) * (max_p + 1), dtype=torch.bool,
                        device=rows.device)
     seen[idx] = True
-    n_bytes = rows.numel() * 4 + rows.shape[0] * 16 + int(seen.sum()) * 12
+    n_bytes = (rows.numel() * 4 + rows.shape[0] * 16 + int(seen.sum()) * 12
+               + extra_bytes)
     n_ops = 4 * int(valid.sum())
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
@@ -587,6 +625,183 @@ def phase_filter_kernels(enc_ops, enc_ref, cf_ops, cf_ref, core, graphs, scale):
             f"{plain_ms:.5f} ms per eager call, bound {bound_ms:.5f} ms "
             f"({bound_by}) at {shape}")
     return {"cni_encode": enc_err, "candidate_filter": cf_diff}, timings
+
+
+# ---------------------------------------------------------------------------
+# the scale store and its update stream (phase 3's cni_update shapes come
+# from its first batch; phase 9 applies the stream)
+# ---------------------------------------------------------------------------
+
+# the scale store's stream: 16 batches of 65,536 records at 35 % deletes
+STREAM_BATCHES = 16
+STREAM_RECORDS = 65_536
+DELETE_FRAC = 0.35
+
+
+def draw_update_batch(graphs, store, rng, n_records: int, delete_frac: float):
+    """One batch against the store as it stands: deletes drawn uniformly
+    from the alive edges, inserts uniform random non-edges (no self-loops,
+    no pair twice), records shuffled; vectorised, unlike
+    ``random_update_batches``, whose Python set of every edge does not
+    scale to 69M edges."""
+    n_del = int(round(n_records * delete_frac))
+    n_ins = n_records - n_del
+    lo, hi, _ = store.alive_edges()
+    pick = rng.permutation(np.unique(rng.integers(0, lo.size, size=2 * n_del)))
+    d_lo, d_hi = lo[pick[:n_del]], hi[pick[:n_del]]
+    v = store.n_vertices
+    a = rng.integers(0, v, size=2 * n_ins)
+    b = rng.integers(0, v, size=2 * n_ins)
+    i_lo, i_hi = np.minimum(a, b), np.maximum(a, b)
+    keep = (i_lo != i_hi) & ~store.has_edges(i_lo, i_hi)
+    i_lo, i_hi = i_lo[keep], i_hi[keep]
+    _, first = np.unique(i_lo * v + i_hi, return_index=True)
+    first = np.sort(first)[:n_ins]
+    i_lo, i_hi = i_lo[first], i_hi[first]
+    if d_lo.size != n_del or i_lo.size != n_ins:
+        raise AssertionError(f"drew {d_lo.size} deletes and {i_lo.size} "
+                             f"inserts, wanted {n_del} and {n_ins}")
+    perm = rng.permutation(n_records)
+    src = np.concatenate([d_lo, i_lo])[perm]
+    dst = np.concatenate([d_hi, i_hi])[perm]
+    insert = np.concatenate([np.zeros(n_del, bool), np.ones(n_ins, bool)])[perm]
+    return graphs.EdgeBatch(src, dst, np.zeros(n_records, np.int64), insert,
+                            np.ones(n_records, bool))
+
+
+class ScaleStream:
+    """The scale store's update batches, each drawn when first asked for
+    (batch i after batches < i are applied; batch 0 may be drawn early,
+    since nothing is applied before it)."""
+
+    def __init__(self, graphs, store, seed: int = 13):
+        self.graphs = graphs
+        self.store = store
+        self.rng = np.random.default_rng(seed)
+        self.batches = []
+
+    def batch(self, i: int):
+        while len(self.batches) <= i:
+            self.batches.append(draw_update_batch(
+                self.graphs, self.store, self.rng, STREAM_RECORDS, DELETE_FRAC))
+        return self.batches[i]
+
+
+@functools.lru_cache(maxsize=1)
+def scale_store(main, core, graphs, scale: float):
+    """The scale graph as a store with its index on the card (seeding is
+    an entry-point call of phase 9's path), and its update stream."""
+    g = scale_graph(graphs, scale)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = main.run("store_seed", lambda: graphs.GraphStore.from_graph(g),
+                     phase=9)
+    t1 = time.perf_counter()
+    main.run("store_seed", lambda: store.attach_index(core.IncrementalIndex()),
+             phase=9)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    idx = store.index
+    log(f"  scale store: {store.n_edges} edges seeded in {t1 - t0:.3f} s "
+        f"(host edge table), index rebuilt in {t2 - t1:.3f} s (d_max "
+        f"{idx.d_max}, max_p {idx.max_p}, {idx.universe.size} labels; "
+        f"saturated digests {int((idx.cni == 1 << 62).sum())} of "
+        f"{store.n_vertices})")
+    return store, ScaleStream(graphs, store), {"seed_s": t1 - t0,
+                                               "rebuild_s": t2 - t1}
+
+
+def log_close(got, want) -> float:
+    """Largest |got - want| of two log digests; raises unless every finite
+    entry is within 1e-5 or two float32 ulps (2^-22 relative) and the
+    infinities agree: the plain version sums the logsumexp in another order,
+    and at L = 200 the digests reach the hundreds, where one ulp is 3e-5."""
+    err = log_err(got, want)
+    fin = torch.isfinite(want)
+    tol = 1e-5 + 2.0 ** -22 * want[fin].abs()
+    if bool(((got[fin] - want[fin]).abs() > tol).any()):
+        raise AssertionError(f"log digests differ beyond 1e-5 or two ulps "
+                             f"(max abs error {err})")
+    return err
+
+
+def check_update(upd_ops, upd_ref, enc_ops, name, rows, delta, d_max, max_p,
+                 need_live: bool = False):
+    """``cni_update`` against its plain version and against ``cni_encode``
+    of the new rows.  "live" rows take a real delta and end with an exact
+    digest that is neither 0 nor SAT64, the only rows where a wrong digest
+    can show; ``need_live`` fails the check when there are none."""
+    new_k, deg_k, cni_k, log_k = upd_ops.cni_update(rows, delta, d_max, max_p)
+    new_p, deg_p, cni_p, log_p = upd_ref.cni_update_ref(rows, delta, d_max,
+                                                        max_p)
+    deg_e, cni_e, log_e = enc_ops.cni_encode(new_k, d_max, max_p)
+    torch.cuda.synchronize()
+    errs = {"rows": int((new_k != new_p).sum()),
+            "deg": int((deg_k != deg_p).sum()),
+            "cni": int((cni_k != cni_p).sum()),
+            "cni_log": log_close(log_k, log_p),
+            "vs_cni_encode": int((deg_k != deg_e).sum() + (cni_k != cni_e).sum()
+                                 + (log_k.view(torch.int32)
+                                    != log_e.view(torch.int32)).sum())}
+    live = int(((delta != 0).any(1) & (cni_p != 0) & (cni_p != 1 << 62)).sum())
+    log(f"  cni_update {name}: F={rows.shape[0]} L={rows.shape[1]} "
+        f"d_max={d_max} max_p={max_p} nonzero delta cells "
+        f"{int((delta != 0).sum())}, saturated {int((cni_p == 1 << 62).sum())}"
+        f", deg0 {int((deg_p == 0).sum())}, past_d_max "
+        f"{int((deg_p > d_max).sum())}, live (real delta, digest neither 0 "
+        f"nor SAT64) {live}; errors {errs}")
+    if errs["rows"] or errs["deg"] or errs["cni"] or errs["vs_cni_encode"]:
+        raise AssertionError(f"cni_update disagrees on {name}: {errs}")
+    if need_live and live == 0:
+        raise AssertionError(f"cni_update {name}: no live row was compared")
+    return errs["cni_log"]
+
+
+def ragged_update(rows, delta, d_max: int):
+    """Edge rows on the real frontier, over a prime row count (100,003, or
+    all rows when there are fewer): saturated hubs (d_max neighbours on the
+    two top labels, keeping their delta's gains), every fifth row emptied
+    by its delta, and rows pushed past d_max."""
+    n = min(rows.shape[0], 100_003)
+    r, d = rows[:n].clone(), delta[:n].clone()
+    hubs = min(2000, n // 4)
+    r[:hubs] = 0
+    r[:hubs, -1] = d_max // 2
+    r[:hubs, -2] += d_max - d_max // 2
+    d[:hubs] = d[:hubs].clamp_min(0)
+    d[hubs::5] = -r[hubs::5]
+    d[hubs + 1:2 * hubs:5, 0] += d_max + 7
+    return r, d
+
+
+def phase_update_kernel(main, upd_ops, upd_ref, enc_ops, core, graphs, scale):
+    store, stream, _ = scale_store(main, core, graphs, scale)
+    idx = store.index
+    frontier, rows, delta = idx.frontier_delta(stream.batch(0))
+    log(f"[3 kernels] cni_update at the scale store's first batch: frontier "
+        f"{frontier.size} rows")
+    d_max, max_p = idx.d_max, idx.max_p
+    err = 0.0
+    for name, (r, d) in (("scale_batch1", (rows, delta)),
+                         ("scale_batch1_zero_delta", (rows,
+                                                      torch.zeros_like(delta))),
+                         ("scale_ragged", ragged_update(rows, delta, d_max))):
+        err = max(err, check_update(upd_ops, upd_ref, enc_ops, name, r, d,
+                                    d_max, max_p))
+    bound_ms, bound_by = encode_bound(rows + delta, d_max, max_p,
+                                      extra_bytes=2 * rows.numel() * 4)
+    kern = functools.partial(upd_ops.cni_update, rows, delta, d_max, max_p)
+    plain = functools.partial(upd_ref.cni_update_ref, rows, delta, d_max, max_p)
+    ms = device_ms(kern)
+    eager_ms = time_ms(kern, 50)
+    plain_ms = time_ms(plain, 5)
+    log(f"  time cni_update: kernel {ms:.5f} ms on the device ({eager_ms:.5f} "
+        f"ms per eager wrapper call), plain {plain_ms:.5f} ms per eager call, "
+        f"bound {bound_ms:.5f} ms ({bound_by}) at F={rows.shape[0]} "
+        f"L={rows.shape[1]} d_max={d_max}")
+    return {"cni_update": err}, {"cni_update": {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by}}
 
 
 # ---------------------------------------------------------------------------
@@ -715,12 +930,13 @@ def phase_batch(main, core, graphs, scale: float):
     profile_filters(core, graphs, g, queries)
 
 
-def profile(tag, fn, top=8):
+def profile(tag, fn, top=8, host_top=0):
     """Run ``fn`` once under torch.profiler: wall time, device busy time
     (the sum of the device-side events: kernels, copies, fills), the busy
     share, and the device events that took the most time.  Operator rows
-    (``aten::…``, on the CPU side) are left out: they repeat their
-    kernels' device time."""
+    (``aten::…``, on the CPU side) are left out, as they repeat their
+    kernels' device time, unless ``host_top`` asks for the operators with
+    the most host (self CPU) time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -739,6 +955,11 @@ def profile(tag, fn, top=8):
         f"({100 * busy / wall:.1f} %) under the profiler")
     for key, count, ms in sorted(ops, key=lambda o: -o[2])[:top]:
         log(f"    {ms:10.3f} ms  {count:6d} x  {key[:90]}")
+    host = [(e.key, e.count, e.self_cpu_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    for key, count, ms in sorted(host, key=lambda o: -o[2])[:host_top]:
+        log(f"    {ms:10.3f} ms  {count:6d} x  {key[:90]} (host)")
 
 
 def profile_filters(core, graphs, g, queries):
@@ -759,12 +980,242 @@ def profile_filters(core, graphs, g, queries):
                 variant="cni", max_iters=1000))
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the mutable store and its incremental index
+# ---------------------------------------------------------------------------
+
+
+def timed_index(index, seconds: list):
+    """Time the index's share of each ``apply`` (synchronised at both
+    ends), appended to ``seconds``; the rest of an apply is the host edge
+    table."""
+    inner = index.apply_batch
+
+    def apply_batch(store, applied):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(store, applied)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+
+    index.apply_batch = apply_batch
+
+
+def run_stream(main, store, batches, tag):
+    """Apply the batches through ``store.apply``; per batch the wall time
+    and the index's share.  ``batches`` may be a generator drawing each
+    batch against the store as it stands."""
+    index_s, walls, records = [], [], 0
+    timed_index(store.index, index_s)
+    st = store.index.stats
+    for i, batch in enumerate(batches):
+        touched0 = st.touched_vertices
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = main.run("store", lambda: store.apply(batch))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        records += batch.n_records
+        log(f"  {tag} batch {i + 1}: {batch.n_records} records, "
+            f"+{res.n_inserted} -{res.n_deleted} skipped {res.n_skipped}, "
+            f"frontier {st.touched_vertices - touched0}, apply "
+            f"{walls[-1]:.4f} s (index {index_s[-1]:.4f} s, host edge "
+            f"table {walls[-1] - index_s[-1]:.4f} s)")
+    del store.index.apply_batch  # back to the class's method
+    total, idx_total = sum(walls), sum(index_s)
+    log(f"  {tag} stream: {len(walls)} batches, {records} records in "
+        f"{total:.4f} s ({records / total:.1f} records/s sustained); index "
+        f"{idx_total:.4f} s, host edge table {total - idx_total:.4f} s; "
+        f"per batch median {float(np.median(walls)):.4f} s (index "
+        f"{float(np.median(index_s)):.4f} s)")
+    log(f"  {tag} IndexStats: {st}")
+    return total / len(walls)
+
+
+def check_scratch(core, store, tag):
+    """The incremental index must equal a scratch rebuild bit for bit."""
+    idx = store.index
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh = core.IncrementalIndex(d_max=idx.d_max)
+    fresh.rebuild(store)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    bad = [name for name in ("counts", "deg", "cni", "cni_log")
+           if not torch.equal(getattr(idx, name), getattr(fresh, name))]
+    log(f"  {tag} scratch rebuild: {seconds:.4f} s; incremental == scratch "
+        f"bit for bit on counts, deg, cni, cni_log: {not bad}")
+    if bad:
+        raise AssertionError(f"{tag}: incremental index != scratch rebuild "
+                             f"in {bad}")
+    return seconds
+
+
+def store_queries(main, core, graphs, store, shapes, tag):
+    """The store-backed engine with a planner, each query against the plain
+    engine on the snapshot graph and the DFS oracle; then one batch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = store.snapshot()
+    torch.cuda.synchronize()
+    log(f"  {tag} snapshot at epoch {snap.epoch}: {time.perf_counter() - t0:.3f}"
+        f" s ({snap.graph.n_edges} edges)")
+    eng = core.SubgraphQueryEngine(store, enumerator="device",
+                                   planner=core.QueryPlanner.for_data(store))
+    plain = core.SubgraphQueryEngine(snap.graph, enumerator="device")
+    queries = []
+    for n_q, sparse, seed in shapes:
+        q = graphs.random_walk_query(snap.graph, n_q, sparse=sparse, seed=seed,
+                                     device="cuda")
+        queries.append(q)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        emb, st = main.run("store_query", lambda: eng.query(q))
+        wall = time.perf_counter() - t1
+        want, st_p = plain.query(q)
+        truth = oracle(core, graphs, plain, q)
+        log(f"  {tag} store q{n_q} {'sparse' if sparse else 'dense'} "
+            f"seed={seed}: prefilter alive "
+            f"{st.extras['store_prefilter_alive']}, alive {st.vertices_after}/"
+            f"{st.vertices_before} in {st.ilgf_iterations} rounds (plain "
+            f"engine {st_p.ilgf_iterations}), filter {st.filter_seconds:.4f} s "
+            f"(plain {st_p.filter_seconds:.4f} s), {st.n_embeddings} "
+            f"embeddings, plan {st.extras['plan']['order']} "
+            f"({st.extras['plan']['source']}), wall {wall:.4f} s")
+        if emb.shape[0] == 0 or emb.shape[1] != n_q:
+            raise AssertionError(f"{tag} store q{n_q}: shape {emb.shape} "
+                                 f"(random-walk queries match)")
+        if emb_set(emb) != emb_set(want) or emb_set(emb) != emb_set(truth):
+            raise AssertionError(f"{tag} store q{n_q}: store engine != plain "
+                                 f"engine / DFS oracle")
+    batch = core.BatchQueryEngine(store, enumerator="device")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results = main.run("store_batch", lambda: batch.query_batch(queries))
+    log(f"  {tag} store batch of {len(queries)}: wall "
+        f"{time.perf_counter() - t1:.4f} s, rounds "
+        f"{[st.ilgf_iterations for _, st in results]}")
+    for q, (emb, _) in zip(queries, results):
+        if emb_set(emb) != emb_set(eng.query(q)[0]):
+            raise AssertionError(f"{tag} store batch != store engine")
+    return queries
+
+
+def synced_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def profile_prefilter(core, store, q):
+    """Where a store-backed query's filter time goes at scale: the
+    prefilter, with its parts timed alone (``prepare_padded_query``, which
+    computes the host's data-side ords and the query digest on every call,
+    and again over one data vertex, which leaves the query digest alone;
+    ``store_digest``: column gather, restricted-alphabet ``cni_encode``,
+    ords upload), and the ILGF fixed point from its mask against the plain
+    one, each timed warm; then the prefilter under torch.profiler, without
+    and with a digest cache."""
+    from repro_torch.core.batch_engine import prepare_padded_query
+    from repro_torch.core.incremental import store_digest, store_prefilter
+
+    idx = store.snapshot().index
+    g = store.snapshot().graph
+    labels = np.unique(q.vlabels.cpu().numpy())
+    times = {}
+    for _ in range(2):  # the second pass is the one kept: warm
+        prep, times["prepare_padded_query (host ords + query digest)"] = \
+            synced_s(lambda: prepare_padded_query(
+                q, idx.vlabels, idx.d_max, idx.max_p, u_pad=q.n_vertices,
+                l_pad=int(labels.size)))
+        _, times["prepare_padded_query over one data vertex"] = synced_s(
+            lambda: prepare_padded_query(
+                q, idx.vlabels[:1], idx.d_max, idx.max_p, u_pad=q.n_vertices,
+                l_pad=int(labels.size)))
+        _, times["store_digest"] = synced_s(
+            lambda: store_digest(idx, labels, ords=prep[0]))
+        alive0, times["store_prefilter"] = synced_s(
+            lambda: store_prefilter(idx, q))
+        res, times["ilgf from the prefilter"] = synced_s(
+            lambda: core.ilgf(g, q, alive0=alive0))
+        plain, times["ilgf, plain"] = synced_s(lambda: core.ilgf(g, q))
+    log(f"  scale prefilter split (warm, seconds): "
+        f"{ {k: round(v, 4) for k, v in times.items()} }; rounds "
+        f"{res.iterations} from {int(alive0.sum())} prefilter survivors "
+        f"against {plain.iterations} plain")
+    if not torch.equal(res.alive, plain.alive):
+        raise AssertionError("ILGF from the prefilter != plain ILGF")
+    cache: dict = {}
+    profile("scale store_prefilter, no cache",
+            lambda: store_prefilter(idx, q), host_top=6)
+    store_prefilter(idx, q, digest_cache=cache)
+    profile("scale store_prefilter, digest cached",
+            lambda: store_prefilter(idx, q, digest_cache=cache), host_top=6)
+
+
+def check_first_update(upd_ops, upd_ref, enc_ops, graphs, g, store, batches):
+    """``cni_update`` against its plain version on the join-heavy store's
+    first real frontier, where rows are unsaturated and digests real (the
+    scale store's frontier rows are nearly all saturated).  A store without
+    an index applies the batch first, giving the records that apply."""
+    applied = graphs.GraphStore.from_graph(g).apply(batches[0]).applied
+    idx = store.index
+    _, rows, delta = idx.frontier_delta(applied)
+    return check_update(upd_ops, upd_ref, enc_ops, "join_batch1", rows, delta,
+                        idx.d_max, idx.max_p, need_live=True)
+
+
+def phase_store(main, core, graphs, scale: float, upd_ops, upd_ref, enc_ops):
+    """Returns the largest log-digest error of the join-heavy store's
+    ``cni_update`` check."""
+    torch.cuda.reset_peak_memory_stats()
+    g = graphs.random_labeled_graph(8000, 40000, 8, seed=42, device="cuda")
+    log(f"[9 store] join-heavy store: {g.n_vertices} V / {g.n_edges} E, 8 "
+        f"batches of 4,096 records at 35 % deletes")
+    store = main.run("store_seed", lambda: graphs.GraphStore.from_graph(g))
+    main.run("store_seed", lambda: store.attach_index(core.IncrementalIndex()))
+    batches = graphs.random_update_batches(store, 8, 4096, delete_frac=0.35,
+                                           seed=1)
+    err = check_first_update(upd_ops, upd_ref, enc_ops, graphs, g, store,
+                             batches)
+    run_stream(main, store, batches, "join")
+    check_scratch(core, store, "join")
+    store_queries(main, core, graphs, store,
+                  [(4, True, 1), (5, True, 2), (6, True, 3)], "join")
+
+    store, stream, seeded = scale_store(main, core, graphs, scale)
+    log(f"[9 store] scale store: {STREAM_BATCHES} batches of "
+        f"{STREAM_RECORDS:,} records at {DELETE_FRAC:.0%} deletes (seeded in "
+        f"{seeded['seed_s']:.3f} s, index rebuilt in {seeded['rebuild_s']:.3f} "
+        f"s)")
+    per_batch = run_stream(main, store,
+                           (stream.batch(i) for i in range(STREAM_BATCHES)),
+                           "scale")
+    # one more batch, outside the measured stream, under the profiler
+    extra = stream.batch(STREAM_BATCHES)
+    profile(f"scale apply, batch {STREAM_BATCHES + 1}",
+            lambda: main.run("store", lambda: store.apply(extra)))
+    log(f"  scale peak device memory after the stream "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    scratch_s = check_scratch(core, store, "scale")
+    log(f"  scale scratch rebuild {scratch_s:.4f} s against "
+        f"{per_batch:.4f} s per incremental batch")
+    (q,) = store_queries(main, core, graphs, store, [(10, False, 3)], "scale")
+    profile_prefilter(core, store, q)
+    log(f"  phase 9 peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return err
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                         help="comma-separated phase numbers to run")
     parser.add_argument("--scale", type=float, default=1.0,
-                        help="common factor on the scale graph's V and E")
+                        help="common factor on the scale graph's (and the "
+                             "scale store's) V and E")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -778,9 +1229,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels.candidate_filter import ref as cf_ref
     from repro_torch.kernels.cni_encode import ops as enc_ops
     from repro_torch.kernels.cni_encode import ref as enc_ref
+    from repro_torch.kernels.cni_update import ops as upd_ops
+    from repro_torch.kernels.cni_update import ref as upd_ref
     from repro_torch.kernels.embed_join import ops, ref
 
-    kernel_ops = (ops, enc_ops, cf_ops)
+    kernel_ops = (ops, enc_ops, cf_ops, upd_ops)
     main = MainPath(kernel_ops)
 
     t_start = time.perf_counter()
@@ -795,14 +1248,24 @@ def main(argv=None) -> int:
                                         graphs, args.scale)
         max_err.update(err)
         timings.update(tim)
+        err, tim = phase_update_kernel(main, upd_ops, upd_ref, enc_ops, core,
+                                       graphs, args.scale)
+        max_err.update(err)
+        timings.update(tim)
     for num, fn in ((4, lambda: phase_human(main, core, graphs)),
                     (5, lambda: phase_join(main, core, graphs)),
                     (6, lambda: phase_scale(main, core, graphs, args.scale)),
-                    (7, lambda: phase_batch(main, core, graphs, args.scale))):
+                    (7, lambda: phase_batch(main, core, graphs, args.scale)),
+                    (9, lambda: phase_store(main, core, graphs, args.scale,
+                                            upd_ops, upd_ref, enc_ops))):
         if num in phases:
             main.phase = num
             t0 = time.perf_counter()
-            fn()
+            if num == 9:  # its cni_update check joins phase 3's error
+                max_err["cni_update"] = max(max_err.get("cni_update", 0.0),
+                                            fn())
+            else:
+                fn()
             log(f"  phase {num}: {time.perf_counter() - t0:.1f} s, launches "
                 f"{ {path: c for (n, path), c in main.counts.items() if n == num} }")
     launches = {k: sum(c[k] for c in main.counts.values()) for k in main.read()}
@@ -816,7 +1279,9 @@ def main(argv=None) -> int:
                 "candidate_filter")
         required = {(4, "device"): path, (5, "device"): path,
                     (5, "host"): ("embed_join_grid",), (6, "device"): path,
-                    (7, "batch"): path}
+                    (7, "batch"): path, (9, "store_seed"): ("cni_encode",),
+                    (9, "store"): ("cni_update",), (9, "store_query"): path,
+                    (9, "store_batch"): path}
         for (num, entry), names in required.items():
             for name in names:
                 if num in phases and main.counts[(num, entry)][name] == 0:
@@ -836,6 +1301,8 @@ def main(argv=None) -> int:
              "src/repro/kernels/cni_encode/kernel.py:62"),
             ("candidate_filter", "candidate_filter/csrc/candidate_filter.cu",
              "src/repro/kernels/candidate_filter/kernel.py:46"),
+            ("cni_update", "cni_update/csrc/cni_update.cu",
+             "src/repro/kernels/cni_update/kernel.py:69"),
         ):
             kernels.append({
                 "name": name, "route": "cuda",

@@ -1,4 +1,5 @@
-"""CNI encoding, ILGF filtering and search, ported to PyTorch."""
+"""CNI encoding, ILGF filtering, search, the planner and the incremental
+index, ported to PyTorch."""
 
 from repro_torch.core.batch_engine import BatchQueryEngine, batched_ilgf_round
 from repro_torch.core.cni import (
@@ -9,6 +10,20 @@ from repro_torch.core.cni import (
 )
 from repro_torch.core.engine import QueryStats, SubgraphQueryEngine, search_filtered
 from repro_torch.core.ilgf import IlgfResult, ilgf, one_shot_filter
+from repro_torch.core.incremental import (
+    IncrementalIndex,
+    IndexSnapshot,
+    IndexStats,
+    ShardedIncrementalIndex,
+    store_prefilter,
+)
+from repro_torch.core.planner import (
+    Plan,
+    PlanCache,
+    QueryPlanner,
+    canonical_form,
+    query_fingerprint,
+)
 from repro_torch.core.search import (
     bfs_join_search,
     device_join_search,
@@ -17,12 +32,16 @@ from repro_torch.core.search import (
     greedy_matching_order,
     host_dfs_search,
 )
+from repro_torch.core.stats import GraphStats
 
 __all__ = [
-    "SAT64", "BatchQueryEngine", "IlgfResult", "QueryStats",
+    "SAT64", "BatchQueryEngine", "GraphStats", "IlgfResult",
+    "IncrementalIndex", "IndexSnapshot", "IndexStats", "Plan", "PlanCache",
+    "QueryPlanner", "QueryStats", "ShardedIncrementalIndex",
     "SubgraphQueryEngine", "batched_ilgf_round", "bfs_join_search",
-    "cni_from_counts", "cni_log_from_counts", "default_max_p",
-    "device_join_search", "embeddings_equal", "empty_enum_report",
-    "greedy_matching_order", "host_dfs_search", "ilgf", "one_shot_filter",
-    "search_filtered",
+    "canonical_form", "cni_from_counts", "cni_log_from_counts",
+    "default_max_p", "device_join_search", "embeddings_equal",
+    "empty_enum_report", "greedy_matching_order", "host_dfs_search", "ilgf",
+    "one_shot_filter", "query_fingerprint", "search_filtered",
+    "store_prefilter",
 ]

@@ -15,10 +15,13 @@ round runs over the whole stack at once:
   mask is stable (their fixed point), gathers the survivors to the front
   and shrinks the pad to the next power of two, so the filter work tracks
   the sum of per-query rounds.
+* **Store seeding.**  On a store or snapshot with an incremental index,
+  each row's alive mask starts from ``store_prefilter`` (the data-side
+  digest memoized per query alphabet across a chunk).
 * **Per-query search** through ``search_filtered``, as the sequential
-  engine does, so embeddings equal it up to row order (the bucket's
-  ``max_p`` may differ from the sequential engine's, which changes the
-  filtered graph but never the embeddings).
+  engine does (with the engine's planner, if any), so embeddings equal it
+  up to row order (the bucket's ``max_p`` may differ from the sequential
+  engine's, which changes the filtered graph but never the embeddings).
 
 ``batched_ilgf_round`` is one peeling round over the batch, the unit the
 reference's serving front-end calls once per tick.
@@ -232,10 +235,12 @@ class BatchQueryEngine:
     ``enumerator="device"`` the join's telemetry lands in
     ``stats.extras["enum"]``.
 
-    ``data``: a ``repro_torch`` ``Graph``, moved to ``device`` once
-    (``None`` means ``"cuda"``).  A store or snapshot (with its
-    ``store_prefilter`` index), the out-of-core tier, ``mesh=`` and
-    ``planner=`` belong to later slices and raise ``NotImplementedError``.
+    ``data``: a ``repro_torch`` ``Graph``, ``GraphStore`` or
+    ``GraphSnapshot``, whose graph moves to ``device`` once (``None``
+    means ``"cuda"``); with an incremental index each query's rounds start
+    from its ``store_prefilter`` mask.  ``planner``: an optional
+    ``QueryPlanner`` shared by every query's search.  The out-of-core tier
+    and ``mesh=`` belong to later slices and raise ``NotImplementedError``.
     """
 
     def __init__(self, data, *, filter_variant: str = ENGINE_CONFIG.filter_variant,
@@ -245,9 +250,11 @@ class BatchQueryEngine:
                  max_iters: int = 1_000, mesh=None, planner=None,
                  enumerator: str = ENGINE_CONFIG.enumerator,
                  d_max: int | None = None, device=None):
-        check_engine_args(data, mesh, planner, enumerator)
+        snap = check_engine_args(data, mesh, enumerator)
         self.device = resolve_device(device)
-        self.data = graph_to(data, self.device)
+        self.data = graph_to(snap.graph, self.device)
+        self.epoch = snap.epoch
+        self._index = snap.index
         self._host_data = to_host(self.data)  # search re-reads fields often
         self.filter_variant = filter_variant
         self.khop = khop
@@ -257,6 +264,8 @@ class BatchQueryEngine:
         self.max_iters = max_iters
         self.d_max = (int(d_max) if d_max is not None
                       else max(1, max_degree(self.data)))
+        # one planner (one plan cache) across every chunk and batch
+        self.planner = planner
         self.enumerator = enumerator
 
     def query_batch(self, queries: Sequence[Graph], *,
@@ -307,6 +316,17 @@ class BatchQueryEngine:
                            d_max, max_p, u_pad, l_pad, b_pad,
                            device=self.device)
         alive = qb.ords > 0
+        if self._index is not None:
+            # imported here: incremental imports this module
+            from repro_torch.core.incremental import store_prefilter
+
+            digest_cache: dict = {}
+            seed = torch.zeros_like(alive)
+            for r, i in enumerate(chunk):
+                seed[r] = store_prefilter(
+                    self._index, queries[i], variant=self.filter_variant,
+                    digest_cache=digest_cache).to(self.device)
+            alive &= seed
         row_query = list(range(len(chunk)))  # batch row -> chunk position
         done: dict[int, tuple[np.ndarray, np.ndarray, int]] = {}
 
@@ -365,7 +385,7 @@ class BatchQueryEngine:
                 self._host_data, q, alive_row, cand_row[:, :q.n_vertices],
                 stats, khop=self.khop, searcher=self.searcher,
                 search_vertex_cap=self.search_vertex_cap,
-                max_embeddings=max_embeddings, enumerator=self.enumerator,
-                device=self.device,
+                max_embeddings=max_embeddings, planner=self.planner,
+                enumerator=self.enumerator, device=self.device,
             )
             results[i] = (emb, stats)

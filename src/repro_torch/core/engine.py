@@ -1,9 +1,10 @@
 """Public API: the end-to-end CNI subgraph-query engine, port of
-``repro.core.engine`` for an in-memory ``Graph``.
+``repro.core.engine`` for a ``Graph``, a ``GraphStore`` or a
+``GraphSnapshot``.
 
-Pipeline = ILGF fixed point (on the device) → compaction (host) →
-optional k-hop refinement → join enumeration.  ``search_filtered`` is the
-post-filter stage on its own.
+Pipeline = (store prefilter) → ILGF fixed point (on the device) →
+compaction (host) → optional k-hop refinement → (planner) → join
+enumeration.  ``search_filtered`` is the post-filter stage on its own.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from repro_torch.core.search import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph, graph_to, induced_subgraph, to_host
+from repro_torch.graphs.store import GraphSnapshot, as_snapshot, later_slice
 
 
 @dataclass
@@ -49,6 +51,7 @@ def search_filtered(
     searcher: str = "join",
     search_vertex_cap: int = 8192,
     max_embeddings: int | None = None,
+    planner=None,
     enumerator: str = "host",
     device=None,
 ) -> np.ndarray:
@@ -57,6 +60,12 @@ def search_filtered(
     ``alive``: (V,) bool fixed-point mask; ``candidates``: (V, U) bool C(u)
     columns over original vertex ids.  Returns embeddings over original ids
     and fills the search-side fields of ``stats`` in place.
+
+    ``planner``: an optional ``core.planner.QueryPlanner``; the matching
+    order then comes from its cost model, fed the post-filter candidate
+    counts, and the plan lands in ``stats.extras["plan"]`` (a ``skipped``
+    entry when the filter left nothing).  Embedding sets are the same
+    under any order.
 
     ``enumerator``: ``"host"`` (``bfs_join_search``) or ``"device"``
     (``device_join_search``, whose telemetry lands in
@@ -70,6 +79,8 @@ def search_filtered(
     dev = resolve_device(device)
     stats.vertices_after = int(alive.sum())
     if stats.vertices_after == 0:
+        if planner is not None:
+            stats.extras["plan"] = obsv.PlanReport.skipped()
         if enumerator == "device" and searcher != "dfs":
             stats.extras["enum"] = obsv.EnumReport.empty()
         return np.zeros((0, query.n_vertices), np.int64)
@@ -84,6 +95,21 @@ def search_filtered(
             stats.filter_seconds += time.perf_counter() - t_ref
     stats.candidate_pairs = int(cand.sum())
 
+    order = None
+    if planner is not None:
+        with obsv.span("query.plan") as plan_span:
+            t_plan = time.perf_counter()
+            plan = planner.plan(query, candidate_counts=cand.sum(axis=0))
+            order = plan.order
+            stats.extras["plan"] = obsv.PlanReport(
+                order=tuple(plan.order),
+                source=plan.source,
+                est_cost=float(plan.est_cost),
+                fingerprint=plan.fingerprint,
+                plan_seconds=time.perf_counter() - t_plan,
+            ).validate()
+            plan_span.set_attrs(source=plan.source)
+
     t1 = time.perf_counter()
     if sub.n_vertices > search_vertex_cap:
         raise ValueError(
@@ -93,17 +119,17 @@ def search_filtered(
     with obsv.span("query.enumerate", searcher=searcher,
                    enumerator=enumerator) as enum_span:
         if searcher == "dfs":
-            emb = host_dfs_search(sub, query, cand,
+            emb = host_dfs_search(sub, query, cand, order=order,
                                   max_embeddings=max_embeddings)
         elif enumerator == "device":
             enum_report: dict = {}
-            emb = device_join_search(sub, query, cand,
+            emb = device_join_search(sub, query, cand, order=order,
                                      max_embeddings=max_embeddings,
                                      report=enum_report, device=dev)
             # from_dict is the schema checkpoint of every exit path
             stats.extras["enum"] = obsv.EnumReport.from_dict(enum_report)
         else:
-            emb = bfs_join_search(sub, query, cand,
+            emb = bfs_join_search(sub, query, cand, order=order,
                                   max_embeddings=max_embeddings, device=dev)
         enum_span.set_attrs(n_embeddings=int(emb.shape[0]))
     stats.search_seconds = time.perf_counter() - t1
@@ -111,43 +137,42 @@ def search_filtered(
     return old_ids[emb] if emb.size else emb
 
 
-def _not_in_this_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with ROADMAP.md queue A item "
-        f"{item}; the port's engine takes a plain repro_torch Graph"
-    )
+def check_engine_args(data, mesh, enumerator: str) -> GraphSnapshot:
+    """The engines' shared argument checks; returns ``data`` as a snapshot.
 
-
-def check_engine_args(data, mesh, planner, enumerator: str) -> None:
-    """The engines' shared argument checks: a plain port ``Graph`` only
-    (other sources, ``mesh=`` and ``planner=`` name their ROADMAP item)
-    and a known enumerator."""
-    if not isinstance(data, Graph):
-        raise _not_in_this_slice(
-            f"a {type(data).__name__} data source",
-            "7 (GraphStore / GraphSnapshot and their store_prefilter index) "
-            "or item 10 (out-of-core tier)")
+    A ``Graph``, ``GraphStore`` or ``GraphSnapshot`` is accepted; an
+    out-of-core snapshot and ``mesh=`` name their ROADMAP items, and the
+    enumerator must be known.
+    """
+    snap = as_snapshot(data)
+    if snap.ooc is not None:
+        raise later_slice("an out-of-core snapshot", "10 (out-of-core tier)")
     if mesh is not None:
-        raise _not_in_this_slice("mesh=", "11 (multi-device)")
-    if planner is not None:
-        raise _not_in_this_slice("planner=", "5 (planner)")
+        raise later_slice("mesh=", "11 (multi-device)")
     if enumerator not in ("host", "device"):
         raise ValueError(
             f"enumerator must be 'host' or 'device', got {enumerator!r}"
         )
+    return snap
 
 
 class SubgraphQueryEngine:
-    """CNI-filter + join-search engine over one in-memory data graph.
+    """CNI-filter + join-search engine over one data graph.
 
-    ``data``: a ``repro_torch`` ``Graph``, moved to ``device`` once.
-    ``device``: ``None`` means ``"cuda"`` (raises without a card); pass
-    ``"cpu"`` to run on the host.  ``enumerator``: ``"host"`` (default) or
-    ``"device"`` — the two-phase count → scan → emit join, with its
-    telemetry in ``stats.extras["enum"]``.
+    ``data``: a ``repro_torch`` ``Graph``, a ``GraphStore`` (its snapshot
+    at construction) or a pinned ``GraphSnapshot``; the graph moves to
+    ``device`` once.  When the snapshot carries an incremental index, each
+    query's ILGF starts from ``store_prefilter``'s mask, computed from the
+    maintained digests (``stats.extras["store_prefilter_alive"]`` counts
+    it).  ``device``: ``None`` means ``"cuda"`` (raises without a card);
+    pass ``"cpu"`` to run on the host.  ``planner``: an optional
+    ``core.planner.QueryPlanner`` for the matching order.
+    ``enumerator``: ``"host"`` (default) or ``"device"`` — the two-phase
+    count → scan → emit join, with its telemetry in
+    ``stats.extras["enum"]``.
 
-    A mutable store or snapshot, ``mesh=`` and ``planner=`` belong to later
-    slices of the port and raise ``NotImplementedError``.
+    ``mesh=`` and an out-of-core snapshot belong to later slices of the
+    port and raise ``NotImplementedError``.
     """
 
     def __init__(
@@ -164,14 +189,17 @@ class SubgraphQueryEngine:
         enumerator: Literal["host", "device"] = "host",
         device=None,
     ):
-        check_engine_args(data, mesh, planner, enumerator)
+        snap = check_engine_args(data, mesh, enumerator)
         self.device = resolve_device(device)
-        self.data = graph_to(data, self.device)
+        self.data = graph_to(snap.graph, self.device)
+        self.epoch = snap.epoch
+        self._index = snap.index
         self._host_data = to_host(self.data)  # search re-reads fields often
         self.filter_variant = filter_variant
         self.khop = khop
         self.searcher = searcher
         self.search_vertex_cap = search_vertex_cap
+        self.planner = planner
         self.enumerator = enumerator
 
     def query(self, q: Graph, *, max_embeddings: int | None = None):
@@ -183,7 +211,17 @@ class SubgraphQueryEngine:
         with obsv.span("query", n_vertices=self.data.n_vertices):
             stats = QueryStats(vertices_before=self.data.n_vertices)
             t0 = time.perf_counter()
-            res = ilgf(self.data, q, variant=self.filter_variant)
+            alive0 = None
+            if self._index is not None:
+                # imported here: incremental imports the batch engine,
+                # which imports this module
+                from repro_torch.core.incremental import store_prefilter
+
+                alive0 = store_prefilter(self._index, q,
+                                         variant=self.filter_variant)
+                stats.extras["store_prefilter_alive"] = int(alive0.sum())
+            res = ilgf(self.data, q, variant=self.filter_variant,
+                       alive0=alive0)
             alive = res.alive.cpu().numpy()
             candidates = res.candidates.cpu().numpy()
             stats.ilgf_iterations = res.iterations
@@ -197,6 +235,7 @@ class SubgraphQueryEngine:
                 searcher=self.searcher,
                 search_vertex_cap=self.search_vertex_cap,
                 max_embeddings=max_embeddings,
+                planner=self.planner,
                 enumerator=self.enumerator,
                 device=self.device,
             )

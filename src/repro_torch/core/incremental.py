@@ -1,0 +1,369 @@
+"""Incrementally maintained CNI index over a mutable graph store, port of
+``repro.core.incremental``.
+
+``IncrementalIndex`` keeps, on its store's device, the
+per-vertex label-count matrix ``counts[v, l]`` over the store's label
+universe (every vertex label; the vertex set is fixed, so the universe is
+too), the label degree, the exact int64 CNI digest (saturating at SAT64)
+and the float32 log digest.  An applied edge batch is a count-vector
+delta:
+
+* **Counts.**  Insert/delete of (u, w) adds/subtracts 1 at
+  ``counts[u, col(w)]`` and ``counts[w, col(u)]``.  The batch's delta over
+  its frontier (the sorted unique endpoints) is scattered on the device
+  into an (F, Lu) matrix, and the ``cni_update`` kernel adds it to the
+  frontier rows and re-encodes them in one pass; the new rows go back to
+  ``counts``.
+* **Digests re-encode only the frontier**, with the reference's partition:
+  an insert-only touch of a saturated digest keeps it (the CNI is monotone
+  and saturation sticky: ``saturated_skips``); a saturated row that took a
+  delete is recomputed from its exact counts (``saturated_recomputes``); a
+  row whose degree passes ``d_max`` grows the tables (next power of two)
+  and re-encodes everything (``full_rebuilds``).  Only the rows the
+  partition re-encodes get the new digests.
+* **One encoder.**  ``rebuild`` and the auto-grow path encode with
+  ``cni_encode``, the batch path with ``cni_update``; the two kernels share
+  their row walk, so incremental state equals a scratch rebuild bit for
+  bit on the card, as the plain versions make it equal on the CPU.
+
+Engines read the index through ``store_prefilter``: the round-0 candidate
+mask of a query from the maintained counts and digests, with no edge
+scatter and no full-graph encode.
+
+The persistence hooks and the vertex-partitioned ``ShardedIncrementalIndex``
+belong to later slices of the port and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import filters as flt
+from repro_torch.core.batch_engine import ceil_pow2, prepare_padded_query
+from repro_torch.core.cni import LOG_SAT64, SAT64, default_max_p
+from repro_torch.core.stats import GraphStats
+from repro_torch.graphs.csr import as_numpy
+from repro_torch.graphs.store import EdgeBatch, GraphStore, later_slice
+from repro_torch.kernels.cni_encode import ops as encode_ops
+from repro_torch.kernels.cni_update import ops as update_ops
+
+
+@dataclass
+class IndexStats:
+    applied_batches: int = 0
+    edges_inserted: int = 0
+    edges_deleted: int = 0
+    touched_vertices: int = 0
+    reencoded_vertices: int = 0
+    saturated_skips: int = 0        # saturated digest + insert-only: no work
+    saturated_recomputes: int = 0   # saturated digest + delete: re-encoded
+    full_rebuilds: int = 0          # d_max overflow (auto-grown tables)
+    boundary_exchanged: int = 0     # cross-shard records (sharded index)
+    extras: dict = field(default_factory=dict)
+
+
+class IndexSnapshot(NamedTuple):
+    """Frozen copy of the index state at one store epoch; travels inside
+    ``GraphSnapshot.index``.  Tensors lie on the index's device."""
+
+    epoch: int
+    universe: np.ndarray   # (Lu,) sorted unique raw vertex labels
+    vlabels: np.ndarray    # (V,) raw vertex labels (shared, immutable)
+    counts: torch.Tensor   # (V, Lu) int32
+    deg: torch.Tensor      # (V,) int32
+    cni: torch.Tensor      # (V,) int64 exact saturating CNI (universe ords)
+    cni_log: torch.Tensor  # (V,) float32 canonical log CNI (universe ords)
+    d_max: int
+    max_p: int
+    stats: object = None   # frozen core.stats.GraphStats (planner input)
+
+
+def _canonical_log(cni: torch.Tensor, log: torch.Tensor) -> torch.Tensor:
+    """Rows whose exact digest is saturated carry ``LOG_SAT64``.
+
+    The float log digest has no saturation of its own, so the insert-skip
+    path would leave it stale on saturated rows; ``cni_match_log`` passes
+    values at or above ``LOG_SAT64`` through, so this is exact, and it keeps
+    incremental and scratch states bit-identical.
+    """
+    return torch.where(cni == SAT64, torch.full_like(log, LOG_SAT64), log)
+
+
+class IncrementalIndex:
+    """Label-count matrix + CNI digest state for a ``GraphStore``.
+
+    Attach with ``store.attach_index(IncrementalIndex())``; the store then
+    calls ``apply_batch`` with exactly the records that changed the edge
+    set.  ``d_max`` is the tables' degree bound: pinned by the argument or
+    the store's ``degree_cap``, else the next power of two of the store's
+    maximum degree, grown when a batch passes it.
+    """
+
+    def __init__(self, *, d_max: int | None = None):
+        self._d_max_arg = d_max
+        self.stats = IndexStats()
+        self.graph_stats: GraphStats | None = None  # set by rebuild()
+        self._epoch = -1  # set by rebuild()
+
+    # -- (re)build -----------------------------------------------------------
+
+    def rebuild(self, store: GraphStore) -> None:
+        """Full build from the store's current edge set: one scatter of
+        2|E| records into (V, Lu) counts, then ``cni_encode``."""
+        self.device = store.device  # the store alone decides where
+        self.universe = np.unique(store.vlabels)
+        self.vlabels = store.vlabels
+        v = store.n_vertices
+        lu = int(self.universe.size)
+        if self._d_max_arg is not None:
+            self.d_max = int(self._d_max_arg)
+        elif store.degree_cap is not None:
+            self.d_max = int(store.degree_cap)
+        else:
+            self.d_max = ceil_pow2(max(4, store.max_degree))
+        self.max_p = default_max_p(self.d_max, lu)
+        self._col_of = np.searchsorted(self.universe, self.vlabels)
+        counts = torch.zeros(v * lu, dtype=torch.int32, device=self.device)
+        lo, hi, _ = store.alive_edges()
+        if lo.size:
+            col = torch.as_tensor(self._col_of, device=self.device)
+            lo_t = torch.as_tensor(lo, device=self.device)
+            hi_t = torch.as_tensor(hi, device=self.device)
+            flat = torch.cat([lo_t * lu + col[hi_t], hi_t * lu + col[lo_t]])
+            del lo_t, hi_t
+            counts.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.int32,
+                                                  device=self.device))
+            del flat
+        self.counts = counts.view(v, lu)
+        self._encode_all()
+        # the planner's statistics ride along, rebuilt with the counts
+        self.graph_stats = GraphStats.from_store(store)
+        self._epoch = store.epoch
+
+    def _encode_rows(self, sub: torch.Tensor):
+        """(k, Lu) count rows -> (deg, cni, canonical log) digest rows."""
+        deg, cni, log = encode_ops.cni_encode(sub, self.d_max, self.max_p)
+        return deg, cni, _canonical_log(cni, log)
+
+    def _encode_all(self) -> None:
+        self.deg, self.cni, self.cni_log = self._encode_rows(self.counts)
+
+    # -- incremental maintenance --------------------------------------------
+
+    def frontier_delta(self, applied: EdgeBatch):
+        """The batch's frontier and its count delta.
+
+        Returns ``(frontier, rows, delta)``: the sorted unique endpoints
+        (F,) int64 on the host, their current count rows and the batch's
+        net change to them, both (F, Lu) int32 on the index's device.
+        """
+        lo, hi = applied.src, applied.dst
+        sign = np.where(applied.insert, 1, -1).astype(np.int32)
+        frontier = np.unique(np.concatenate([lo, hi]))
+        lu = int(self.universe.size)
+        at_lo = np.searchsorted(frontier, lo)
+        at_hi = np.searchsorted(frontier, hi)
+        flat = np.concatenate([at_lo * lu + self._col_of[hi],
+                               at_hi * lu + self._col_of[lo]])
+        delta = torch.zeros(frontier.size * lu, dtype=torch.int32,
+                            device=self.device)
+        delta.index_add_(0, torch.as_tensor(flat, device=self.device),
+                         torch.as_tensor(np.concatenate([sign, sign]),
+                                         device=self.device))
+        rows = self.counts[torch.as_tensor(frontier, device=self.device)]
+        return frontier, rows, delta.view(frontier.size, lu)
+
+    def apply_batch(self, store: GraphStore, applied: EdgeBatch) -> None:
+        """Fold one applied batch into counts and digests (frontier only)."""
+        st = self.stats
+        st.applied_batches += 1
+        sign = np.where(applied.insert, 1, -1).astype(np.int32)
+        st.edges_inserted += int(applied.insert.sum())
+        st.edges_deleted += int((~applied.insert).sum())
+        self._fold_graph_stats(store, applied.src, applied.dst, sign)
+
+        frontier, rows, delta = self.frontier_delta(applied)
+        st.touched_vertices += int(frontier.size)
+        new_rows, new_deg, new_cni, new_log = update_ops.cni_update(
+            rows, delta, self.d_max, self.max_p)
+        at = torch.as_tensor(frontier, device=self.device)
+        self.counts[at] = new_rows
+        max_deg = int(new_deg.max())  # the batch's one device sync
+        if max_deg > self.d_max:
+            # the tables' degree bound is passed: grow it and re-encode all
+            self.d_max = ceil_pow2(max_deg)
+            self.max_p = default_max_p(self.d_max, int(self.universe.size))
+            self._encode_all()
+            st.full_rebuilds += 1
+            self._epoch = store.epoch
+            return
+        self.deg[at] = new_deg
+
+        # partition the frontier by the saturation rules
+        sat = self.cni[at] == SAT64
+        dec = torch.as_tensor(_decreased(applied, frontier), device=self.device)
+        skip = sat & ~dec  # stays saturated: provably no change
+        n_skip, n_recompute, n_redo = torch.stack(
+            [skip.sum(), (sat & dec).sum(), (~skip).sum()]).tolist()
+        st.saturated_skips += n_skip
+        st.saturated_recomputes += n_recompute
+        st.reencoded_vertices += n_redo
+        redo = ~skip
+        self.cni[at[redo]] = new_cni[redo]
+        self.cni_log[at[redo]] = _canonical_log(new_cni, new_log)[redo]
+        self._epoch = store.epoch
+
+    def _fold_graph_stats(self, store, lo, hi, sign) -> None:
+        """Fold the applied records into the planner statistics: the column
+        ids are in hand, so no edge-table scan is needed."""
+        if self.graph_stats is not None:
+            self.graph_stats.apply_records(
+                self._col_of[lo], self._col_of[hi], sign, epoch=store.epoch)
+
+    def checkpoint_state(self):
+        raise later_slice("IncrementalIndex.checkpoint_state",
+                          "8 (persistence)")
+
+    @classmethod
+    def from_checkpoint_state(cls, leaves, meta, *, store=None):
+        raise later_slice("IncrementalIndex.from_checkpoint_state",
+                          "8 (persistence)")
+
+    # -- views ---------------------------------------------------------------
+
+    def freeze(self) -> IndexSnapshot:
+        """A copy of the state at this epoch (the counts are (V, Lu) on the
+        device: a snapshot costs that much memory while it is cached)."""
+        return IndexSnapshot(
+            epoch=self._epoch,
+            universe=self.universe,
+            vlabels=self.vlabels,
+            counts=self.counts.clone(),
+            deg=self.deg.clone(),
+            cni=self.cni.clone(),
+            cni_log=self.cni_log.clone(),
+            d_max=self.d_max,
+            max_p=self.max_p,
+            stats=(self.graph_stats.copy()
+                   if self.graph_stats is not None else None),
+        )
+
+
+def _decreased(applied: EdgeBatch, frontier: np.ndarray) -> np.ndarray:
+    """(F,) bool: frontier rows that lost a neighbour in this batch."""
+    dec = np.zeros(frontier.size, dtype=bool)
+    gone = ~applied.insert
+    if gone.any():
+        ids = np.unique(np.concatenate([applied.src[gone], applied.dst[gone]]))
+        dec[np.searchsorted(frontier, ids)] = True
+    return dec
+
+
+class ShardedIncrementalIndex(IncrementalIndex):
+    """The reference's per-shard index; not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise later_slice("ShardedIncrementalIndex", "11 (multi-device)")
+
+
+# ---------------------------------------------------------------------------
+# Query-side consumption: maintained digests instead of a per-query encode.
+# ---------------------------------------------------------------------------
+
+
+def query_columns(universe: np.ndarray, query_labels: np.ndarray):
+    """A query's sorted unique labels -> (universe columns (Lq,) int64,
+    present (Lq,) bool); an absent label has zero counts everywhere."""
+    cols = np.searchsorted(universe, query_labels)
+    cols_c = np.clip(cols, 0, max(0, universe.size - 1))
+    present = (
+        universe[cols_c] == query_labels if universe.size else
+        np.zeros(query_labels.shape, bool)
+    )
+    return cols_c, present
+
+
+def gathered_counts(idx: IndexSnapshot, query_labels: np.ndarray) -> torch.Tensor:
+    """Round-0 per-query counts (V, Lq) int32 from the universe matrix: a
+    column gather, equal to ``counts_matrix`` of the same epoch's graph."""
+    cols, present = query_columns(idx.universe, query_labels)
+    dev = idx.counts.device
+    out = torch.zeros((idx.counts.shape[0], query_labels.size),
+                      dtype=torch.int32, device=dev)
+    if present.any():
+        keep = np.nonzero(present)[0]
+        out[:, torch.as_tensor(keep, device=dev)] = \
+            idx.counts[:, torch.as_tensor(cols[keep], device=dev)]
+    return out
+
+
+def store_digest(idx: IndexSnapshot, query_labels: np.ndarray,
+                 ords: np.ndarray | None = None):
+    """Data-side ``VertexDigest`` for a query alphabet, from index state.
+
+    A full-universe alphabet reuses the maintained digests; a restricted
+    one re-encodes the gathered counts with ``cni_encode`` under the
+    index's (d_max, max_p).  Returns (digest, counts_q, ords), tensors on
+    the index's device.  ``ords`` may pass in the data-side ord() values.
+    """
+    vlab = idx.vlabels
+    if ords is None:
+        pos = np.clip(np.searchsorted(query_labels, vlab), 0,
+                      max(0, query_labels.size - 1))
+        ords = np.where(
+            query_labels.size and (query_labels[pos] == vlab), pos + 1, 0
+        ).astype(np.int32)
+    dev = idx.counts.device
+    counts_q = gathered_counts(idx, query_labels)
+    if query_labels.size == idx.universe.size and np.array_equal(
+            query_labels, idx.universe):
+        deg, cni, log = idx.deg, idx.cni, idx.cni_log
+    else:
+        deg, cni, log = encode_ops.cni_encode(counts_q, idx.d_max,
+                                               idx.max_p)
+    ords_t = torch.as_tensor(np.asarray(ords, dtype=np.int32), device=dev)
+    digest = flt.VertexDigest(ord_label=ords_t, deg=deg, cni=cni, cni_log=log)
+    return digest, counts_q, ords_t
+
+
+def store_prefilter(idx: IndexSnapshot, query, *, variant: str = "cni",
+                    digest_cache: dict | None = None) -> torch.Tensor:
+    """One filtering pass from the store's digests: (V,) bool alive0 on the
+    index's device.
+
+    Sound for every variant; the ILGF fixed point proceeds from this mask.
+    ``mnd_nlf`` needs per-edge maxima the counts cannot give, so it takes
+    the label filter.  ``digest_cache``: an optional dict the caller owns;
+    the data-side digest is memoized per query alphabet.
+    """
+    q_vlab = as_numpy(query.vlabels)
+    query_labels = np.unique(q_vlab)
+    ords_data, q_counts, q_digest, _q_mnd = prepare_padded_query(
+        query, idx.vlabels, idx.d_max, idx.max_p,
+        u_pad=int(q_vlab.shape[0]), l_pad=int(query_labels.size))
+    key = query_labels.tobytes()
+    cached = digest_cache.get(key) if digest_cache is not None else None
+    if cached is None:
+        cached = store_digest(idx, query_labels, ords=ords_data)
+        if digest_cache is not None:
+            digest_cache[key] = cached
+    data_digest, counts_q, ords = cached
+    dev = idx.counts.device
+    q = flt.VertexDigest(*(torch.as_tensor(x, device=dev) for x in q_digest))
+    label = (ords[:, None] == q.ord_label[None, :]) & (ords[:, None] > 0)
+    if variant == "cni":
+        match = flt.cni_match(data_digest, q)
+    elif variant == "cni_log":
+        match = flt.cni_match_log(data_digest, q)
+    elif variant == "nlf":
+        match = flt.nlf_match(counts_q, torch.as_tensor(q_counts, device=dev),
+                              ords, q.ord_label)
+    elif variant == "label_degree":
+        match = label & (data_digest.deg[:, None] >= q.deg[None, :])
+    else:  # mnd_nlf and future variants: the label filter (a sound superset)
+        match = label
+    return match.any(1) & (ords > 0)

@@ -2,8 +2,8 @@
 ``repro.graphs.generators``).
 
 The draws are the reference's numpy draws, call for call, so a seed gives
-the same graph in both packages; only the final ``Graph`` lives on the
-requested device.
+the same graph (and the same update batches) in both packages; only the
+final ``Graph`` lives on the requested device.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.graphs.csr import Graph, as_numpy, build_graph
+from repro_torch.graphs.store import EdgeBatch, GraphStore
 
 
 def _draw_labels(rng: np.random.Generator, n: int, n_labels: int, dist: str):
@@ -157,3 +158,65 @@ def random_walk_query(
             q_elabels = q_elabels[np.array(sorted(keep_idx), dtype=np.int64)]
     vlab = as_numpy(g.vlabels)[ids]
     return build_graph(len(ids), vlab, q_edges, q_elabels, device=device)
+
+
+def random_update_batches(
+    store_or_graph,
+    n_batches: int,
+    batch_edges: int,
+    *,
+    delete_frac: float = 0.3,
+    n_edge_labels: int = 1,
+    seed: int = 0,
+) -> list[EdgeBatch]:
+    """Random insert/delete batches against an existing edge set.
+
+    Deletes are drawn from the edge set as the sequence is generated (each
+    targets an edge alive at its point in the sequence), inserts are fresh
+    random non-edges.  Every edge sits in a Python set, as in the
+    reference, so this serves tests and small stores; a store's edges are
+    read in table order, which the port keeps equal to the reference's.
+    """
+    rng = np.random.default_rng(seed)
+    if isinstance(store_or_graph, GraphStore):
+        n = store_or_graph.n_vertices
+        src, dst, _ = store_or_graph.alive_edges()
+    else:
+        g = store_or_graph
+        n = g.n_vertices
+        s = as_numpy(g.src)
+        d = as_numpy(g.dst)
+        keep = s < d
+        src, dst = s[keep].astype(np.int64), d[keep].astype(np.int64)
+    present = {(int(a), int(b)) for a, b in zip(src, dst)}
+    batches = []
+    for _ in range(n_batches):
+        n_del = int(round(batch_edges * delete_frac))
+        n_ins = batch_edges - n_del
+        recs: list[tuple[int, int, int, bool]] = []
+        pool = list(present)
+        rng.shuffle(pool)
+        for lo, hi in pool[: min(n_del, len(pool))]:
+            recs.append((lo, hi, 0, False))
+            present.discard((lo, hi))
+        guard = 0
+        while n_ins > 0 and guard < 50 * batch_edges:
+            guard += 1
+            a, b = int(rng.integers(0, n)), int(rng.integers(0, n))
+            lo, hi = min(a, b), max(a, b)
+            if lo == hi or (lo, hi) in present:
+                continue
+            recs.append((lo, hi, int(rng.integers(0, max(1, n_edge_labels))),
+                         True))
+            present.add((lo, hi))
+            n_ins -= 1
+        rng.shuffle(recs)
+        arr = np.asarray([r[:3] for r in recs], dtype=np.int64).reshape(-1, 3)
+        batches.append(EdgeBatch(
+            src=arr[:, 0],
+            dst=arr[:, 1],
+            elabels=arr[:, 2],
+            insert=np.asarray([r[3] for r in recs], dtype=bool),
+            valid=np.ones(len(recs), dtype=bool),
+        ))
+    return batches

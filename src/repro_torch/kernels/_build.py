@@ -3,7 +3,8 @@
 Each kernel family is one ``.cu`` file with a plain C interface (no PyTorch
 headers), compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the repository root.  The library's name carries a
-hash of the source and the flags, so an edited source builds anew and an
+hash of the source, of the local headers it includes (``#include "..."``)
+and of the flags, so an edited source or header builds anew and an
 unchanged one loads from the earlier build.  Nothing here runs at import:
 the CPU tests import every module without ``nvcc``.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -47,12 +49,30 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _local_includes(source: Path) -> list[Path]:
+    """The headers ``source`` includes with quotes, transitively, each once
+    (so headers that include each other end the walk)."""
+    found: list[Path] = []
+    todo = [source]
+    while todo:
+        path = todo.pop()
+        for name in re.findall(r'^\s*#include\s+"([^"]+)"', path.read_text(),
+                               re.MULTILINE):
+            header = (path.parent / name).resolve()
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def load(source: Path) -> BuiltLibrary:
     """Compile ``source`` (once per process and source hash) and load it."""
     source = Path(source)
     if source in _LIBRARIES:
         return _LIBRARIES[source]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(b"".join(
+        p.read_bytes() for p in (source, *_local_includes(source)))
+        + " ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
     seconds, log = 0.0, "reused " + str(out)
     if not out.exists():

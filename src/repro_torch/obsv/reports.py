@@ -1,6 +1,6 @@
 """Typed telemetry reports (the port's copy of the reference's
-``EnumReport``/``EnumLevel``/``BatchReport`` schema, cut to what this
-package fills).
+``PlanReport``/``EnumReport``/``EnumLevel``/``BatchReport`` schema, cut to
+what this package fills).
 
 Each report is a ``Mapping``, so ``report["device_rounds"]`` and
 ``dict(report)`` behave as the plain dicts the searchers fill; ``from_dict``
@@ -34,6 +34,7 @@ _SCALAR_CHECKS = {
     "int": lambda x: isinstance(x, int) and not isinstance(x, bool),
     "float": lambda x: isinstance(x, (int, float)) and not isinstance(x, bool),
     "bool": lambda x: isinstance(x, bool),
+    "str": lambda x: isinstance(x, str),
     "str | None": lambda x: x is None or isinstance(x, str),
 }
 
@@ -112,6 +113,35 @@ class Report(Mapping):
             v = getattr(self, f.name)
             if hasattr(v, "item") and getattr(v, "shape", None) == ():
                 object.__setattr__(self, f.name, v.item())
+
+
+@dataclass(eq=False)
+class PlanReport(Report):
+    """``stats.extras["plan"]`` — the planner's decision for one query."""
+
+    order: tuple
+    source: str
+    est_cost: float
+    fingerprint: object
+    plan_seconds: float
+
+    def _check_order(self, v):
+        if not isinstance(v, tuple):
+            raise ValueError(f"PlanReport.order: expected tuple, got "
+                             f"{type(v).__name__}")
+
+    def _check_fingerprint(self, v):
+        pass  # opaque planner token (hex digest, or None when skipped)
+
+    def __post_init__(self):
+        object.__setattr__(self, "order", tuple(self.order))
+        super().__post_init__()
+
+    @classmethod
+    def skipped(cls) -> "PlanReport":
+        """The filter-killed contract: planner present, nothing to order."""
+        return cls(order=(), source="skipped", est_cost=0.0,
+                   fingerprint=None, plan_seconds=0.0)
 
 
 @dataclass(eq=False)

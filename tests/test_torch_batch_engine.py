@@ -227,19 +227,18 @@ def test_compact_batch_gathers_and_inerts():
                                   np.asarray(r_qb2.digest.deg))
 
 
-def test_empty_batch_and_later_slices_raise(tmp_path):
-    from repro.graphs import GraphStore
-    from repro.graphs.ooc import OutOfCoreGraphStore
+def test_empty_batch_and_later_slices_raise():
+    from repro_torch.graphs import GraphSnapshot, ShardedGraphStore
 
     g = random_labeled_graph(50, 120, 3, seed=0)
     assert BatchQueryEngine(port(g), device="cpu").query_batch([]) == []
-    with pytest.raises(NotImplementedError, match="item 7"):
-        BatchQueryEngine(GraphStore(4, np.zeros(4, np.int64)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        BatchQueryEngine(ShardedGraphStore.from_graph(port(g), n_shards=2),
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
-        BatchQueryEngine(OutOfCoreGraphStore(4, np.zeros(4, np.int64), index=None,
-                                             storage_dir=str(tmp_path)),
+        BatchQueryEngine(GraphSnapshot(0, port(g), None, ooc=object()),
                          device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         BatchQueryEngine(port(g), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        BatchQueryEngine(port(g), planner=object(), device="cpu")
+    with pytest.raises(ValueError, match="enumerator"):
+        BatchQueryEngine(port(g), enumerator="gpu", device="cpu")

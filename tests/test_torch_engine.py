@@ -133,22 +133,34 @@ def test_entry_points_default_to_cuda(monkeypatch):
         bfs_join_search(g, q, cand)
 
 
-@pytest.mark.parametrize("kwargs,slice_item", [
-    ({"mesh": object()}, "11"),
-    ({"planner": object()}, "5"),
+@pytest.mark.parametrize("case,slice_item", [
+    ("mesh", "11"),
+    ("sharded_store", "11"),
 ])
-def test_later_slices_raise(kwargs, slice_item):
+def test_later_slices_raise(case, slice_item):
+    from repro_torch.graphs import ShardedGraphStore
+
     g = random_labeled_graph(50, 120, 3, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match=f"item {slice_item}"):
-        SubgraphQueryEngine(g, device="cpu", **kwargs)
+        if case == "mesh":
+            SubgraphQueryEngine(g, mesh=object(), device="cpu")
+        else:
+            SubgraphQueryEngine(ShardedGraphStore.from_graph(g, n_shards=2),
+                                device="cpu")
 
 
 def test_store_input_raises():
+    """An out-of-core snapshot still raises (item 10), and a store of the
+    reference package is no port input."""
     from repro.graphs import GraphStore
+    from repro_torch.graphs import GraphSnapshot
 
-    store = GraphStore(4, np.zeros(4, np.int64))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SubgraphQueryEngine(store, device="cpu")
+    g = random_labeled_graph(50, 120, 3, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        SubgraphQueryEngine(GraphSnapshot(0, g, None, ooc=object()),
+                            device="cpu")
+    with pytest.raises(TypeError, match="repro_torch Graph"):
+        SubgraphQueryEngine(GraphStore(4, np.zeros(4, np.int64)), device="cpu")
 
 
 def test_import_loads_neither_jax_nor_repro():

@@ -10,13 +10,27 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import BatchQueryEngine, SubgraphQueryEngine, device_join_search
+from repro_torch.core import (
+    BatchQueryEngine,
+    IncrementalIndex,
+    QueryPlanner,
+    SubgraphQueryEngine,
+    device_join_search,
+)
 from repro_torch.core.cni import LOG_SAT64, default_max_p
-from repro_torch.graphs import random_labeled_graph, random_walk_query, to_host
+from repro_torch.graphs import (
+    GraphStore,
+    random_labeled_graph,
+    random_update_batches,
+    random_walk_query,
+    to_host,
+)
 from repro_torch.kernels.candidate_filter import ops as cf_ops
 from repro_torch.kernels.candidate_filter import ref as cf_ref
 from repro_torch.kernels.cni_encode import ops as enc_ops
 from repro_torch.kernels.cni_encode import ref as enc_ref
+from repro_torch.kernels.cni_update import ops as upd_ops
+from repro_torch.kernels.cni_update import ref as upd_ref
 from repro_torch.kernels.embed_join import ops, ref
 
 pytestmark = pytest.mark.gpu
@@ -210,3 +224,98 @@ def test_batch_engine_on_card_equals_cpu(cuda, variant):
         np.testing.assert_array_equal(e_gpu, e_cpu)
         assert s_gpu.ilgf_iterations == s_cpu.ilgf_iterations
         assert s_gpu.candidate_pairs == s_cpu.candidate_pairs
+
+
+@pytest.mark.parametrize("real", [False, True], ids=["zero_delta", "real_delta"])
+@pytest.mark.parametrize("case", ENCODE_CASES)
+def test_cni_update_equals_plain_version_and_encode(cuda, case, real):
+    n, n_labels, d_max, hubs, over = case
+    rng = np.random.default_rng(n + 1)
+    rows = random_counts(rng, n, n_labels, d_max, hubs=hubs, over=over)
+    delta = np.zeros_like(rows)
+    if real:  # gains and losses, every seventh row emptied; hubs kept
+        delta = np.maximum(rng.integers(-2, 3, size=rows.shape), -rows)
+        delta[hubs::7] = -rows[hubs::7]
+        delta[:hubs] = np.abs(delta[:hubs])
+    max_p = default_max_p(d_max, n_labels)
+    x = torch.as_tensor(rows, device=cuda)
+    dx = torch.as_tensor(delta.astype(np.int32), device=cuda)
+    before = upd_ops.cni_update.launches
+    new_rows, deg, cni, cni_log = upd_ops.cni_update(x, dx, d_max, max_p)
+    assert upd_ops.cni_update.launches == before + 1
+    rows_p, deg_p, cni_p, log_p = upd_ref.cni_update_ref(x, dx, d_max, max_p)
+    torch.testing.assert_close(new_rows, rows_p, rtol=0, atol=0)
+    torch.testing.assert_close(deg, deg_p, rtol=0, atol=0)
+    torch.testing.assert_close(cni, cni_p, rtol=0, atol=0)
+    # the plain version sums the logsumexp in another order: as for
+    # cni_encode above, 1e-5 absolute or two float32 ulps
+    torch.testing.assert_close(cni_log, log_p, rtol=2.0**-22, atol=1e-5)
+    # the shared row walk: the new rows encode to the same bits
+    for got, want in zip((deg, cni, cni_log),
+                         enc_ops.cni_encode(new_rows, d_max, max_p)):
+        assert torch.equal(got, want)
+    if hubs:
+        assert bool((cni[:hubs] == 1 << 62).all())
+
+
+def test_incremental_index_on_card_equals_scratch_and_cpu(cuda):
+    g = random_labeled_graph(3000, 15000, 6, n_edge_labels=2, seed=11,
+                             device="cpu")
+    batches = random_update_batches(g, 4, 600, delete_frac=0.35, seed=12)
+    stores = {}
+    for dev in ("cpu", "cuda"):
+        store = GraphStore.from_graph(g, device=dev)
+        store.attach_index(IncrementalIndex())
+        before = upd_ops.cni_update.launches
+        for b in batches:
+            store.apply(b)
+        assert upd_ops.cni_update.launches - before == (4 if dev == "cuda" else 0)
+        stores[dev] = store
+    idx = stores["cuda"].index
+    assert idx.device == stores["cuda"].device
+    assert idx.counts.device.type == "cuda"
+    fresh = IncrementalIndex(d_max=idx.d_max)
+    fresh.rebuild(stores["cuda"])
+    for name in ("counts", "deg", "cni", "cni_log"):
+        assert torch.equal(getattr(idx, name), getattr(fresh, name)), name
+    cpu = stores["cpu"].index
+    for name in ("counts", "deg", "cni"):
+        assert torch.equal(getattr(idx, name).cpu(), getattr(cpu, name)), name
+    torch.testing.assert_close(idx.cni_log.cpu(), cpu.cni_log, rtol=2.0**-22,
+                               atol=1e-5)
+    assert idx.stats == cpu.stats
+
+
+@pytest.mark.parametrize("variant", ["cni", "cni_log"])
+def test_store_engines_on_card_equal_cpu(cuda, variant):
+    g = random_labeled_graph(2000, 8000, 8, n_edge_labels=2, seed=42,
+                             device="cpu")
+    batches = random_update_batches(g, 2, 400, delete_frac=0.35, seed=3)
+    stores = []
+    for dev in ("cpu", "cuda"):
+        store = GraphStore.from_graph(g, device=dev)
+        store.attach_index(IncrementalIndex())
+        for b in batches:
+            store.apply(b)
+        stores.append(store)
+    snap = stores[0].snapshot().graph
+    queries = [random_walk_query(snap, 5 + i % 3, sparse=True, seed=50 + i,
+                                 device="cpu") for i in range(4)]
+    out = []
+    for store, dev in zip(stores, ("cpu", None)):
+        eng = SubgraphQueryEngine(store, filter_variant=variant,
+                                  enumerator="device",
+                                  planner=QueryPlanner.for_data(store),
+                                  device=dev)
+        out.append(([eng.query(q) for q in queries],
+                    BatchQueryEngine(store, filter_variant=variant,
+                                     enumerator="device",
+                                     device=dev).query_batch(queries)))
+    (seq_c, bat_c), (seq_g, bat_g) = out
+    for (e_c, s_c), (e_g, s_g), (b_c, _), (b_g, _) in zip(seq_c, seq_g, bat_c,
+                                                          bat_g):
+        np.testing.assert_array_equal(e_g, e_c)
+        np.testing.assert_array_equal(b_g, b_c)
+        assert s_g.extras["store_prefilter_alive"] == \
+            s_c.extras["store_prefilter_alive"]
+        assert s_g.extras["plan"]["order"] == s_c.extras["plan"]["order"]
