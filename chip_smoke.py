@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py                     # every phase, one card
     python3 chip_smoke.py --phases 1,2,3      # device, build, kernel checks
+    python3 chip_smoke.py --phases 1,2,3,10   # ... and the LM serving path
 
 Phases:
 
 1. device   — the card's name and power limit (nvidia-smi); no card, no run.
-2. build    — nvcc builds the four kernel sources (embed_join, cni_encode,
-              candidate_filter, cni_update), one nvcc each, all started
-              together; prints ptxas's resource lines and the build seconds.
+2. build    — nvcc builds the six kernel sources (embed_join, cni_encode,
+              candidate_filter, cni_update, flash_attention, wkv6), one
+              nvcc each, all started together; prints ptxas's resource
+              lines and the build seconds.
 3. kernels  — each kernel against its plain PyTorch version: the embed-join
               kernels at the shapes of real join levels (recorded from a
               HUMAN query and a join-heavy query), cni_encode and
@@ -26,6 +28,20 @@ Phases:
               two float32 ulps, as the GPU tests allow); each kernel's
               device time (CUDA-graph replay), its eager wrapper time, its
               plain version's eager time (CUDA events), and its bound.
+              LM half: phase 10's requests run through a one-layer,
+              full-width granite-3-2b and rwkv6-7b on the plain versions
+              (the same positions and kv_len as the full models), recording
+              the attention and WKV calls; flash_attention is held against
+              its plain version at those decode calls (B 8, 32/8 heads, Sq
+              1, Skv 512), a 2048-token causal prefill, and ragged cases
+              (S 1000, window 1024, non-causal, MQA, an offset chunk, bf16),
+              float32 within 2e-5 and bf16 within 2e-2 (absolute plus
+              relative); wkv6 at the recorded decode calls (8 x 64 heads, T
+              1) and a 1024-step chunk with a 1000 + 24 split-T chain, bit
+              for bit (it follows the plain version's float32 evaluation
+              order); times as above, and for flash_attention also
+              ``scaled_dot_product_attention(..., enable_gqa=True)`` as its
+              library time.
 4. HUMAN    — ``SubgraphQueryEngine(g, enumerator="device")`` on the
               paper's HUMAN stand-in (4,675 V / 44 labels), four
               random-walk queries, each held bit for bit against the DFS
@@ -56,8 +72,10 @@ Phases:
               and candidate_filter must have launched on the device path of
               phases 4-6 and on the batch path of phase 7, the grid kernel
               on phase 5's host path (the host join's large levels),
-              cni_update on phase 9's apply path, and the filter and join
-              kernels on its store-backed query and batch paths.
+              cni_update on phase 9's apply path, the filter and join
+              kernels on its store-backed query and batch paths, and
+              flash_attention on phase 10's granite-3-2b and wkv6 on its
+              rwkv6-7b ``run_to_completion``.
 9. store    — ``GraphStore`` + ``IncrementalIndex`` on the card: the
               join-heavy graph with ``random_update_batches(.., 8, 4096,
               delete_frac=0.35, seed=1)``, and the scale graph seeded as a
@@ -85,6 +103,23 @@ Phases:
               ``store_digest`` and the ILGF from its mask against the plain
               ILGF (which must reach the same mask), and profiled without
               and with a digest cache; peak device memory.
+10. serve   — ``ServeEngine`` at full width on granite-3-2b, then
+              rwkv6-7b (the first freed before the second): float32 params
+              from the port's ``init_params`` with a seeded generator, 16
+              requests (prompt lengths ``default_rng(0).integers(8, 65)``,
+              tokens uniform in the vocab, 32 new tokens each) under
+              ``ServeConfig(max_batch=8, max_len=512, eos_token=-1)``.  The
+              tokens must equal a second run with ``attn_impl="ref"`` (the
+              plain versions) on the same params; on a difference the phase
+              prints the request, the token and the plain run's top-2 logit
+              margin there, and fails.  Teacher-forced ``decode_step``
+              logits with the kernels and with the plain versions must agree
+              within 2e-3.  Tokens/s, the median decode step (CUDA events),
+              one profiled step (busy share, top device ops), peak memory
+              above what earlier phases hold, and for rwkv6-7b how far the
+              teacher-forced logits move when only the WKV's output sum is
+              reordered (why its kernel matches its plain version bit for
+              bit).
 
 Any failure propagates: the script exits non-zero and prints no result.
 The last line of a passing run is
@@ -94,6 +129,7 @@ The last line of a passing run is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import subprocess
@@ -1209,9 +1245,404 @@ def phase_store(main, core, graphs, scale: float, upd_ops, upd_ref, enc_ops):
     return err
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path: phase 3's flash_attention and wkv6 checks, phase 10
+# ---------------------------------------------------------------------------
+
+SERVE_ARCHS = ("granite-3-2b", "rwkv6-7b")
+SERVE_REQUESTS = 16
+SERVE_MAX_NEW = 32
+SERVE_CONFIG = dict(max_batch=8, max_len=512, eos_token=-1)
+# bf16 dense tensor-core rate (H100 SXM data sheet), the bf16 cases' bound
+BF16_OPS_PER_S = 989e12
+
+
+def serve_requests(vocab: int):
+    """Phase 10's requests: prompt lengths ``default_rng(0).integers(8, 65)``,
+    tokens uniform in the vocab, 32 new tokens each."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(8, 65, size=SERVE_REQUESTS)
+    return [(rng.integers(0, vocab, size=int(n)), SERVE_MAX_NEW) for n in lens]
+
+
+def lm_modules():
+    """The LM modules phases 3 and 10 drive, in one namespace (so that a
+    CPU rehearsal can hand them reduced configs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, model, ssm
+    from repro_torch.serve import ServeConfig, ServeEngine
+    return types.SimpleNamespace(get_config=get_config, L=layers, M=model,
+                                 S=ssm, ServeConfig=ServeConfig,
+                                 ServeEngine=ServeEngine)
+
+
+def record_serve(lm, arch: str, keep_every: int = 64):
+    """Phase 10's requests through a one-layer, full-width copy of ``arch``
+    on its plain versions, recording every attention (or WKV) call: its
+    position and kv_len, and the inputs of every ``keep_every``-th call and
+    of the call with the longest kv_len (cloned: the cache changes in place).
+    The schedule (positions, kv_len) is that of the full model, since no
+    request stops early (eos -1) and depth does not enter it."""
+    cfg = dataclasses.replace(lm.get_config(arch), n_layers=1, attn_impl="ref")
+    params = lm.M.init_params(cfg, torch.Generator("cuda").manual_seed(1), "cuda")
+    eng = lm.ServeEngine(params, cfg, lm.ServeConfig(**SERVE_CONFIG))
+    for prompt, max_new in serve_requests(cfg.vocab):
+        eng.submit(prompt, max_new)
+    kept, longest, seen = [], [], []
+    module, name = (lm.L, "attention_math") if arch != "rwkv6-7b" \
+        else (lm.S, "wkv6_apply")
+    plain = getattr(module, name)
+
+    def recording(*args, **kw):
+        kv_len = kw.get("kv_len", 0)
+        call = lambda: tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args) + (dict(kw),)
+        if len(seen) % keep_every == 0:
+            kept.append(call())
+        if kv_len > max(seen, default=-1):
+            longest[:] = [call()]
+        seen.append(kv_len)
+        return plain(*args, **kw)
+
+    setattr(module, name, recording)
+    try:
+        eng.run_to_completion()
+    finally:
+        setattr(module, name, plain)
+    del eng, params
+    torch.cuda.empty_cache()
+    return kept + longest, seen
+
+
+def flash_bound(q, k, kw):
+    """Least time for one attention call: q, the K/V rows some query sees
+    and the output, each moved once, against 4 D operations per visible
+    (query, key) pair at the input type's peak rate."""
+    from repro_torch.kernels.flash_attention.ref import visible_mask
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    mask = visible_mask(sq, skv, causal=kw.get("causal", True),
+                        window=kw.get("window"), q_offset=kw.get("q_offset", 0),
+                        kv_len=kw.get("kv_len"), device=q.device)
+    pairs = int(mask.sum()) * b * hq
+    keys = int(mask.any(0).sum())
+    size = q.element_size()
+    n_bytes = 2 * q.numel() * size + 2 * b * hkv * keys * d * size
+    rate = SCALAR_OPS_PER_S if q.dtype == torch.float32 else BF16_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * d * pairs / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wkv_bound(r, v, u):
+    """Least time for one WKV call: r, k, w, v and o once, u, the state in
+    and out once, against 7 operations per state cell and step."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    n_bytes = ((3 * dk + 2 * dv) * b * h * t * r.element_size()
+               + u.numel() * 4 + 2 * b * h * dk * dv * 4)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 7 * b * h * t * dk * dv / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_flash(fa_ops, fa_ref, name, q, k, v, kw):
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = fa_ref.mha_plain(q, k, v, **kw)
+    tol = 2e-5 if q.dtype == torch.float32 else 2e-2
+    err = float((got.float() - want.float()).abs().max())
+    bad = ((got.float() - want.float()).abs()
+           > tol + tol * want.float().abs()).sum().item()
+    log(f"  flash_attention {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
+        f"{str(q.dtype)[6:]} {kw}: max abs err {err:.3g}")
+    if bad or got.dtype != q.dtype or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version on {name}: {bad} cells past {tol}")
+    return err
+
+
+def check_wkv(wkv_ops, wkv_ref, name, r, k, v, w, u, s0):
+    """wkv6 against its plain version: equal bit for bit (the kernel follows
+    the plain version's float32 evaluation order; stricter than the
+    reference's 2e-4)."""
+    o, s = wkv_ops.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    o_p, s_p = wkv_ref.wkv6_plain(r, k, v, w, u, s0)
+    err = 0.0
+    for got, want in ((o, o_p), (s, s_p)):
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        bad = (got != want).sum().item()
+        if bad or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"wkv6 differs from its plain version on "
+                                 f"{name}: {bad} cells not equal")
+    log(f"  wkv6 {name}: r {tuple(r.shape)} v {tuple(v.shape)}: max abs err "
+        f"{err:.3g} (outputs up to {float(o_p.abs().max()):.3g})")
+    return err, (o, s)
+
+
+def time_kernel(name, kern, plain, bound, shape, library=None):
+    ms = device_ms(kern)
+    eager_ms = time_ms(kern, 50)
+    plain_ms = time_ms(plain, 5)
+    library_ms = None if library is None else time_ms(library, 50)
+    bound_ms, bound_by = bound
+    log(f"  time {name}: kernel {ms:.5f} ms on the device ({eager_ms:.5f} ms "
+        f"per eager wrapper call), plain {plain_ms:.5f} ms per eager call, "
+        + ("" if library is None else f"library {library_ms:.5f} ms, ")
+        + f"bound {bound_ms:.5f} ms ({bound_by}) at {shape}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_lm_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref):
+    """flash_attention at granite's recorded decode calls, a 2048-token
+    prefill and ragged cases; wkv6 at rwkv6's recorded decode calls and a
+    1024-step chunk with a split-T chain; each against its plain version."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    lm = lm_modules()
+    timings, gen = {}, torch.Generator("cuda").manual_seed(3)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    calls, seen = record_serve(lm, "granite-3-2b")
+    log(f"[3 kernels] LM half: {len(seen)} granite attention calls recorded "
+        f"(kv_len {min(seen)}-{max(seen)}), checking {len(calls)}")
+    fa_err, bf16_err = 0.0, 0.0
+    for q, k, v, impl, kw in calls:
+        fa_err = max(fa_err, check_flash(fa_ops, fa_ref,
+                                         f"granite_decode_kv{kw['kv_len']}",
+                                         q, k, v, kw))
+    q, k, v, _, kw = max(calls, key=lambda c: c[4]["kv_len"])
+    n = kw["kv_len"]
+    timings["flash_attention"] = time_kernel(
+        "flash_attention", lambda: fa_ops.flash_attention(q, k, v, **kw),
+        lambda: fa_ref.mha_plain(q, k, v, **kw), flash_bound(q, k, kw),
+        f"granite decode B={q.shape[0]} Hq={q.shape[1]} Hkv={k.shape[1]} "
+        f"Skv={k.shape[2]} kv_len={n}",
+        lambda: sdpa(q, k[:, :, :n], v[:, :, :n], enable_gqa=True))
+
+    cases = [  # name, (b, hq, hkv, sq, skv, d), kw, dtype
+        ("prefill_2048", (1, 32, 8, 2048, 2048, 64), {}, torch.float32),
+        ("ragged_1000", (2, 32, 8, 1000, 1000, 64), {}, torch.float32),
+        ("window_1024", (1, 32, 8, 2048, 2048, 64), {"window": 1024},
+         torch.float32),
+        ("non_causal_777", (2, 32, 8, 777, 777, 64), {"causal": False},
+         torch.float32),
+        ("mqa", (2, 32, 1, 512, 512, 64), {}, torch.float32),
+        ("chunk_offset", (2, 32, 8, 100, 512, 64),
+         {"q_offset": 300, "kv_len": 400}, torch.float32),
+        ("bf16_prefill_2048", (1, 32, 8, 2048, 2048, 64), {}, torch.bfloat16),
+        ("bf16_decode", (8, 32, 8, 1, 512, 64), {"q_offset": 200, "kv_len": 201},
+         torch.bfloat16),
+    ]
+    inputs = {}
+    for name, (b, hq, hkv, sq, skv, d), kw, dtype in cases:
+        q, k, v = (randn(b, hq, sq, d, dtype=dtype), randn(b, hkv, skv, d, dtype=dtype),
+                   randn(b, hkv, skv, d, dtype=dtype))
+        inputs[name] = (q, k, v, kw)
+        err = check_flash(fa_ops, fa_ref, name, q, k, v, kw)
+        if dtype == torch.float32:
+            fa_err = max(fa_err, err)
+        else:
+            bf16_err = max(bf16_err, err)
+    log(f"  flash_attention max abs err: float32 {fa_err:.3g} (within 2e-5 "
+        f"+ 2e-5 |want|), bfloat16 {bf16_err:.3g} (2e-2)")
+    q, k, v, kw = inputs["prefill_2048"]
+    timings["flash_attention_prefill"] = time_kernel(
+        "flash_attention_prefill", lambda: fa_ops.flash_attention(q, k, v),
+        lambda: fa_ref.mha_plain(q, k, v), flash_bound(q, k, kw),
+        "prefill B=1 Hq=32 Hkv=8 S=2048 causal",
+        lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+
+    calls, seen = record_serve(lm, "rwkv6-7b")
+    log(f"[3 kernels] {len(seen)} rwkv6 WKV calls recorded, checking "
+        f"{len(calls)}")
+    wkv_err = 0.0
+    for impl, r, k, v, w, u, s0, _ in calls:
+        wkv_err = max(wkv_err, check_wkv(wkv_ops, wkv_ref, "rwkv6_decode",
+                                         r, k, v, w, u, s0)[0])
+    _, r, k, v, w, u, s0, _ = calls[-1]
+    timings["wkv6"] = time_kernel(
+        "wkv6", lambda: wkv_ops.wkv6(r, k, v, w, u, s0),
+        lambda: wkv_ref.wkv6_plain(r, k, v, w, u, s0), wkv_bound(r, v, u),
+        f"rwkv6 decode B*H={r.shape[0] * r.shape[1]} T=1 64x64")
+
+    b, h, t, d = 8, 64, 1024, 64
+    r, k, v = randn(b, h, t, d), randn(b, h, t, d), randn(b, h, t, d)
+    w = torch.exp(-torch.exp(randn(b, h, t, d) * 0.5 - 4.0))
+    u, s0 = randn(h, d), randn(b, h, d, d)
+    err, (o, s) = check_wkv(wkv_ops, wkv_ref, "chunk_1024", r, k, v, w, u, s0)
+    wkv_err = max(wkv_err, err)
+    cut = 1000  # split-T: 1000 + 24 steps, neither a multiple of 16
+    o1, s1 = wkv_ops.wkv6(r[:, :, :cut], k[:, :, :cut], v[:, :, :cut],
+                          w[:, :, :cut], u, s0)
+    o2, s2 = wkv_ops.wkv6(r[:, :, cut:], k[:, :, cut:], v[:, :, cut:],
+                          w[:, :, cut:], u, s1)
+    chain = max(float((torch.cat([o1, o2], 2) - o).abs().max()),
+                float((s2 - s).abs().max()))
+    log(f"  wkv6 split-T chain {cut}+{t - cut} against one call: max abs "
+        f"diff {chain:.3g}")
+    if chain != 0:
+        raise AssertionError(f"wkv6 split-T differs from full-T by {chain}")
+    wkv_err = max(wkv_err, chain)
+    timings["wkv6_chunk"] = time_kernel(
+        "wkv6_chunk", lambda: wkv_ops.wkv6(r, k, v, w, u, s0),
+        lambda: wkv_ref.wkv6_plain(r, k, v, w, u, s0), wkv_bound(r, v, u),
+        f"chunk B*H={b * h} T={t} 64x64")
+    return {"flash_attention": fa_err, "wkv6": wkv_err}, timings
+
+
+def top2_margins(logits, vocab):
+    top = logits[:, 0, :vocab].topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).cpu()
+
+
+def serve_once(lm, params, cfg, record_margins=False):
+    """Phase 10's requests through ``ServeEngine``: (done, wall seconds,
+    per-decode device ms from CUDA events, {(rid, j): top-2 margin})."""
+    eng = lm.ServeEngine(params, cfg, lm.ServeConfig(**SERVE_CONFIG))
+    for prompt, max_new in serve_requests(cfg.vocab):
+        eng.submit(prompt, max_new)
+    reqs, events, margins, last = list(eng.queue), [], {}, {}
+    decode, tick = eng._decode, eng.tick
+
+    def timed_decode(toks, pos):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits = decode(toks, pos)
+        stop.record()
+        events.append((start, stop))
+        if record_margins:
+            last["m"] = top2_margins(logits, cfg.vocab)
+        return logits
+
+    def margin_tick():
+        before = {r.rid: len(r.out) for r in reqs}
+        out = tick()
+        for r in reqs:
+            if len(r.out) > before[r.rid]:
+                margins[(r.rid, len(r.out) - 1)] = float(last["m"][r.slot])
+        return out
+
+    eng._decode = timed_decode
+    if record_margins:
+        eng.tick = margin_tick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    return done, wall, step_ms, margins
+
+
+def wkv6_einsum(impl, r, k, v, w, u, state):
+    """The WKV recurrence with its output sum in einsum's order (as the
+    reference's ``wkv6_ref``), to size what a reordered sum alone moves."""
+    s, u32, outs = state, u[None, :, :, None], []
+    for i in range(r.shape[2]):
+        kv = k[:, :, i, :, None] * v[:, :, i, None, :]
+        outs.append(torch.einsum("bhk,bhkd->bhd", r[:, :, i], s + u32 * kv))
+        s = w[:, :, i, :, None] * s + kv
+    return torch.stack(outs, dim=2), s
+
+
+def teacher_forced(lm, params, cfg, toks, wkv=None):
+    """Logits of ``decode_step`` fed ``toks`` (B, T) one column a step on a
+    fresh cache; ``wkv`` replaces the RWKV WKV function for the run."""
+    plain = lm.S.wkv6_apply
+    lm.S.wkv6_apply = wkv or plain
+    try:
+        cache = lm.M.init_cache(cfg, toks.shape[0], SERVE_CONFIG["max_len"],
+                                device="cuda")
+        steps = [lm.M.decode_step(params, cfg, cache, toks[:, t:t + 1], t)[0]
+                 for t in range(toks.shape[1])]
+    finally:
+        lm.S.wkv6_apply = plain
+    return torch.cat(steps, 1)[..., : cfg.vocab]
+
+
+def phase_serve(main, lm, arch: str):
+    """``ServeEngine`` at full width on ``arch`` with the kernels (the main
+    path), then on its plain versions with the same params; the tokens must
+    be equal, and so must teacher-forced logits within 2e-3."""
+    cfg = lm.get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by earlier phases, not this one
+    t0 = time.perf_counter()
+    params = lm.M.init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[10 serve] {arch}: {n_params:,} params ({n_params * 4 / 1e9:.2f} GB "
+        f"float32) drawn in {time.perf_counter() - t0:.2f} s; "
+        f"{SERVE_REQUESTS} requests, ServeConfig({SERVE_CONFIG})")
+
+    done, wall, step_ms, _ = main.run(
+        arch, lambda: serve_once(lm, params, cfg), phase=10)
+    n_tok = sum(len(t) for _, t in done)
+    log(f"  kernels: {len(done)} requests, {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.2f} tokens/s; {len(step_ms)} decode steps, median "
+        f"{float(np.median(step_ms)):.4f} ms (CUDA events; min "
+        f"{min(step_ms):.4f}, max {max(step_ms):.4f}); launches "
+        f"{main.counts[(10, arch)]}")
+
+    cfg_ref = dataclasses.replace(cfg, attn_impl="ref")
+    done_ref, wall_ref, step_ref, margins = serve_once(lm, params, cfg_ref,
+                                                       record_margins=True)
+    log(f"  plain: {sum(len(t) for _, t in done_ref)} tokens in {wall_ref:.3f}"
+        f" s; median decode step {float(np.median(step_ref)):.4f} ms; "
+        f"smallest top-2 logit margin {min(margins.values()):.4g}")
+    got, want = dict(done), dict(done_ref)
+    if [r for r, _ in done] != [r for r, _ in done_ref]:
+        raise AssertionError(f"{arch}: finish order {[r for r, _ in done]} != "
+                             f"{[r for r, _ in done_ref]}")
+    for rid in want:
+        for j, (a, b) in enumerate(zip(got[rid], want[rid])):
+            if a != b:
+                raise AssertionError(
+                    f"{arch}: request {rid} token {j}: kernels {a}, plain {b}; "
+                    f"the plain run's top-2 logit margin there "
+                    f"{margins[(rid, j)]:.4g}")
+    if any(not (0 <= t < cfg.vocab) for ts in got.values() for t in ts):
+        raise AssertionError(f"{arch}: a token outside the vocab")
+    log(f"  tokens equal the plain run's for all {len(done)} requests")
+
+    # teacher-forced decode: kernels against plain versions, same params
+    reqs = serve_requests(cfg.vocab)[: SERVE_CONFIG["max_batch"]]
+    toks = np.stack([p[:8] for p, _ in reqs]).astype(np.int32)
+    out = [teacher_forced(lm, params, c, toks) for c in (cfg, cfg_ref)]
+    err = float((out[0] - out[1]).abs().max())
+    log(f"  teacher-forced decode logits, kernels vs plain: max abs diff "
+        f"{err:.3g} over {tuple(out[0].shape)}")
+    if err > 2e-3 or not torch.isfinite(out[0]).all():
+        raise AssertionError(f"{arch}: decode logits differ by {err}")
+    if cfg.family == "rwkv":
+        reordered = teacher_forced(lm, params, cfg_ref, toks, wkv6_einsum)
+        log(f"  the same with only the WKV output sum reordered (einsum "
+            f"instead of the pairwise tree): max abs logit diff "
+            f"{float((reordered - out[1]).abs().max()):.3g} (why the kernel "
+            f"follows the plain version's order bit for bit)")
+
+    cache = lm.M.init_cache(cfg, toks.shape[0], SERVE_CONFIG["max_len"],
+                            device="cuda")
+    lm.M.decode_step(params, cfg, cache, toks[:, :1], 0)
+    profile(f"{arch} decode_step (B=8, pos 1)",
+            lambda: lm.M.decode_step(params, cfg, cache, toks[:, 1:2], 1),
+            top=10)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  phase 10 {arch} peak device memory {(peak - held) / 2**30:.3f} GiB "
+        f"above the {held / 2**30:.3f} GiB held at its start")
+    del params, cache, out
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                         help="comma-separated phase numbers to run")
     parser.add_argument("--scale", type=float, default=1.0,
                         help="common factor on the scale graph's (and the "
@@ -1232,8 +1663,12 @@ def main(argv=None) -> int:
     from repro_torch.kernels.cni_update import ops as upd_ops
     from repro_torch.kernels.cni_update import ref as upd_ref
     from repro_torch.kernels.embed_join import ops, ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
 
-    kernel_ops = (ops, enc_ops, cf_ops, upd_ops)
+    kernel_ops = (ops, enc_ops, cf_ops, upd_ops, fa_ops, wkv_ops)
     main = MainPath(kernel_ops)
 
     t_start = time.perf_counter()
@@ -1252,12 +1687,17 @@ def main(argv=None) -> int:
                                        graphs, args.scale)
         max_err.update(err)
         timings.update(tim)
+        err, tim = phase_lm_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref)
+        max_err.update(err)
+        timings.update(tim)
     for num, fn in ((4, lambda: phase_human(main, core, graphs)),
                     (5, lambda: phase_join(main, core, graphs)),
                     (6, lambda: phase_scale(main, core, graphs, args.scale)),
                     (7, lambda: phase_batch(main, core, graphs, args.scale)),
                     (9, lambda: phase_store(main, core, graphs, args.scale,
-                                            upd_ops, upd_ref, enc_ops))):
+                                            upd_ops, upd_ref, enc_ops)),
+                    (10, lambda: [phase_serve(main, lm_modules(), arch)
+                                  for arch in SERVE_ARCHS])):
         if num in phases:
             main.phase = num
             t0 = time.perf_counter()
@@ -1281,7 +1721,9 @@ def main(argv=None) -> int:
                     (5, "host"): ("embed_join_grid",), (6, "device"): path,
                     (7, "batch"): path, (9, "store_seed"): ("cni_encode",),
                     (9, "store"): ("cni_update",), (9, "store_query"): path,
-                    (9, "store_batch"): path}
+                    (9, "store_batch"): path,
+                    (10, "granite-3-2b"): ("flash_attention",),
+                    (10, "rwkv6-7b"): ("wkv6",)}
         for (num, entry), names in required.items():
             for name in names:
                 if num in phases and main.counts[(num, entry)][name] == 0:
@@ -1303,6 +1745,10 @@ def main(argv=None) -> int:
              "src/repro/kernels/candidate_filter/kernel.py:46"),
             ("cni_update", "cni_update/csrc/cni_update.cu",
              "src/repro/kernels/cni_update/kernel.py:69"),
+            ("flash_attention", "flash_attention/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:87"),
+            ("wkv6", "rwkv6_wkv/csrc/wkv6.cu",
+             "src/repro/kernels/rwkv6_wkv/kernel.py:72"),
         ):
             kernels.append({
                 "name": name, "route": "cuda",
@@ -1311,7 +1757,7 @@ def main(argv=None) -> int:
                 "max_abs_err": max_err[name],
                 **{k: timings[name][k]
                    for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-                "library_ms": None,
+                "library_ms": timings[name].get("library_ms"),
             })
         log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

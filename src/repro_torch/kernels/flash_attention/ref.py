@@ -1,0 +1,51 @@
+"""Plain PyTorch version of the flash-attention kernel.
+
+``mha_plain`` is the materializing masked softmax of the reference's
+``kernels/flash_attention/ref.py::mha_ref``, plus the ``kv_len`` pad mask of
+the Pallas kernel: scores in float32, masked to -1e30 where a key is past
+``kv_len``, in the future of a causal query, or outside the sliding
+``window``, then softmax and the weighted sum of V, cast to ``q.dtype``.
+GQA maps query head ``h`` to KV head ``h // (Hq / Hkv)``.  It runs on any
+device: the CPU tests use it, and the card compares the kernel with it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def visible_mask(sq: int, skv: int, *, causal: bool = True, window=None,
+                 q_offset: int = 0, kv_len=None, device=None) -> torch.Tensor:
+    """(Sq, Skv) bool: which key each query row may attend to."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    if kv_len is not None:
+        mask &= kpos < kv_len
+    return mask
+
+
+def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window=None, q_offset: int = 0,
+              kv_len=None) -> torch.Tensor:
+    """(B, Hq, Sq, D) x (B, Hkv, Skv, D)^2 -> (B, Hq, Sq, D) in q.dtype."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kk = k.float().repeat_interleave(group, dim=1)
+    vv = v.float().repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / math.sqrt(d)
+    mask = visible_mask(sq, skv, causal=causal, window=window,
+                        q_offset=q_offset, kv_len=kv_len, device=q.device)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = probs / probs.sum(-1, keepdim=True).clamp_min(1e-30)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vv).to(q.dtype)

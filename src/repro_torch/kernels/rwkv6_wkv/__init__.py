@@ -1,0 +1,5 @@
+"""RWKV-6 WKV: the data-dependent-decay recurrence with its state."""
+
+from repro_torch.kernels.rwkv6_wkv.ops import launch_counts, reset_launches, wkv6
+
+__all__ = ["launch_counts", "reset_launches", "wkv6"]

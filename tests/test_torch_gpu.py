@@ -32,6 +32,10 @@ from repro_torch.kernels.cni_encode import ref as enc_ref
 from repro_torch.kernels.cni_update import ops as upd_ops
 from repro_torch.kernels.cni_update import ref as upd_ref
 from repro_torch.kernels.embed_join import ops, ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -319,3 +323,132 @@ def test_store_engines_on_card_equal_cpu(cuda, variant):
         assert s_g.extras["store_prefilter_alive"] == \
             s_c.extras["store_prefilter_alive"]
         assert s_g.extras["plan"]["order"] == s_c.extras["plan"]["order"]
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: flash_attention, wkv6, decode_step, ServeEngine
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [  # (b, hq, hkv, sq, skv, d, causal, window, q_offset, kv_len)
+    (2, 4, 2, 128, 128, 32, True, None, 0, None),   # the CPU tests' cases
+    (1, 8, 8, 96, 96, 16, True, None, 0, None),
+    (1, 4, 1, 64, 64, 64, True, 32, 0, None),
+    (2, 2, 2, 80, 80, 32, False, None, 0, None),
+    (2, 4, 2, 1, 100, 32, True, None, 99, 100),     # decode offset
+    (8, 32, 8, 1, 512, 64, True, None, 200, 201),   # granite decode
+    (1, 32, 8, 300, 300, 64, True, None, 0, None),  # ragged prefill
+    (1, 4, 2, 33, 200, 128, True, 50, 100, 133),    # chunked prefill, window
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_equals_plain_version(cuda, case, dtype):
+    b, hq, hkv, sq, skv, d, causal, window, q_offset, kv_len = case
+    gen = torch.Generator(cuda).manual_seed(sum(case[:6]))
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    before = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, causal, window, q_offset, kv_len)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    want = fa_ref.mha_plain(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, kv_len=kv_len)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+WKV_CASES = [  # (b, h, t, dk, dv)
+    (2, 3, 70, 16, 16), (1, 2, 64, 32, 16), (1, 1, 128, 64, 64),
+    (8, 64, 1, 64, 64), (1, 4, 1000, 64, 64), (2, 2, 17, 128, 128),
+]
+
+
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv6_equals_plain_version(cuda, case):
+    b, h, t, dk, dv = case
+    gen = torch.Generator(cuda).manual_seed(sum(case))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    r, k, v = randn(b, h, t, dk), randn(b, h, t, dk), randn(b, h, t, dv)
+    w = torch.rand((b, h, t, dk), generator=gen, device=cuda) * 0.79 + 0.2
+    u, s0 = randn(h, dk), randn(b, h, dk, dv)
+    before = wkv_ops.wkv6.launches
+    o, s = wkv_ops.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv6.launches == before + 1
+    o_p, s_p = wkv_ref.wkv6_plain(r, k, v, w, u, s0)
+    # the kernel follows the plain version's float32 evaluation order
+    torch.testing.assert_close(o, o_p, rtol=0, atol=0)
+    torch.testing.assert_close(s, s_p, rtol=0, atol=0)
+    # split-T equals full-T
+    half = t // 2
+    if half:
+        o1, s1 = wkv_ops.wkv6(r[:, :, :half], k[:, :, :half], v[:, :, :half],
+                              w[:, :, :half], u, s0)
+        o2, s2 = wkv_ops.wkv6(r[:, :, half:], k[:, :, half:], v[:, :, half:],
+                              w[:, :, half:], u, s1)
+        torch.testing.assert_close(torch.cat([o1, o2], 2), o, rtol=0, atol=0)
+        torch.testing.assert_close(s2, s, rtol=0, atol=0)
+    # bfloat16 inputs: the same arithmetic on the widened values
+    rb, kb, vb, wb = (x.bfloat16() for x in (r, k, v, w))
+    ob, sb = wkv_ops.wkv6(rb, kb, vb, wb, u, s0)
+    ob_p, sb_p = wkv_ref.wkv6_plain(rb, kb, vb, wb, u, s0)
+    assert ob.dtype == torch.bfloat16
+    torch.testing.assert_close(ob, ob_p, rtol=0, atol=0)
+    torch.testing.assert_close(sb, sb_p, rtol=0, atol=0)
+
+
+def lm_pair(arch, cuda):
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg_auto = dataclasses.replace(get_config(arch).reduced(), attn_impl="auto")
+    params = M.init_params(cfg_auto, torch.Generator().manual_seed(0), "cpu")
+    return cfg_auto, params, copy.deepcopy(params).to(cuda)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "rwkv6-7b"])
+def test_decode_step_on_card_equals_cpu(cuda, arch):
+    from repro_torch.models import model as M
+
+    cfg, p_cpu, p_gpu = lm_pair(arch, cuda)
+    name = "flash_attention" if arch.startswith("granite") else "wkv6"
+    kernel = fa_ops.flash_attention if name == "flash_attention" else wkv_ops.wkv6
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, size=(3, 6))
+    caches = [M.init_cache(cfg, 3, 16, device="cpu"),
+              M.init_cache(cfg, 3, 16, device=cuda)]
+    before = kernel.launches
+    for t in range(6):
+        want, caches[0] = M.decode_step(p_cpu, cfg, caches[0], toks[:, t:t + 1], t)
+        got, caches[1] = M.decode_step(p_gpu, cfg, caches[1], toks[:, t:t + 1], t)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert kernel.launches - before == 6 * cfg.n_layers
+    full, _ = M.forward(p_gpu, cfg, torch.as_tensor(toks, device=cuda))
+    want_full, _ = M.forward(p_cpu, cfg, torch.as_tensor(toks))
+    torch.testing.assert_close(full.cpu(), want_full, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "rwkv6-7b"])
+def test_serve_engine_on_card_equals_cpu(cuda, arch):
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg, p_cpu, p_gpu = lm_pair(arch, cuda)
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab, size=int(rng.integers(2, 10))),
+             int(rng.integers(4, 12))) for _ in range(8)]
+    out = []
+    for params in (p_cpu, p_gpu):
+        eng = ServeEngine(params, cfg, ServeConfig(max_batch=4, max_len=96,
+                                                   eos_token=-1))
+        assert eng.device == params.device
+        for prompt, max_new in reqs:
+            eng.submit(prompt, max_new)
+        out.append(eng.run_to_completion())
+    assert out[1] == out[0]
