@@ -36,7 +36,13 @@ Phases:
               1, Skv 512), a 2048-token causal prefill, and ragged cases
               (S 1000, window 1024, non-causal, MQA, an offset chunk, bf16),
               float32 within 2e-5 and bf16 within 2e-2 (absolute plus
-              relative); wkv6 at the recorded decode calls (8 x 64 heads, T
+              relative), and every call equal bit for bit to a second call
+              on the same inputs; its decode is also timed over the full
+              512-row cache and its prefill in bf16 beside bf16 SDPA, and
+              ptxas's registers, spills and shared memory are printed for
+              the flash_attention and candidate_filter kernels beside the
+              dynamic shared memory of the path's launches; wkv6 at the
+              recorded decode calls (8 x 64 heads, T
               1) and a 1024-step chunk with a 1000 + 24 split-T chain, bit
               for bit (it follows the plain version's float32 evaluation
               order); times as above, and for flash_attention also
@@ -132,6 +138,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -650,6 +657,11 @@ def phase_filter_kernels(enc_ops, enc_ref, cf_ops, cf_ref, core, graphs, scale):
             functools.partial(cf_ops.candidate_filter, *args, mode=mode),
             functools.partial(cf_ref.candidate_filter_ref, *args, mode=mode),
             filter_bound(args), f"V={args[0].shape[0]} U={args[3].shape[0]}")
+    lib = cf_ops.library()
+    u = grids[("scale_round1", "exact")][3].shape[-1]
+    ptxas_report(lib, ("candidate_filter_kernel",), {
+        f"U={u} {mode}": lib.lib.candidate_filter_smem(u, int(mode == "log"))
+        for mode in ("exact", "log")})
     for name, (kern, plain, (bound_ms, bound_by), shape) in fns.items():
         ms = device_ms(kern)
         eager_ms = time_ms(kern, 50)
@@ -1348,7 +1360,10 @@ def wkv_bound(r, v, u):
 
 def check_flash(fa_ops, fa_ref, name, q, k, v, kw):
     got = fa_ops.flash_attention(q, k, v, **kw)
+    again = fa_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"flash_attention is not deterministic on {name}")
     want = fa_ref.mha_plain(q, k, v, **kw)
     tol = 2e-5 if q.dtype == torch.float32 else 2e-2
     err = float((got.float() - want.float()).abs().max())
@@ -1379,6 +1394,34 @@ def check_wkv(wkv_ops, wkv_ref, name, r, k, v, w, u, s0):
     log(f"  wkv6 {name}: r {tuple(r.shape)} v {tuple(v.shape)}: max abs err "
         f"{err:.3g} (outputs up to {float(o_p.abs().max()):.3g})")
     return err, (o, s)
+
+
+def ptxas_report(built, names, smem):
+    """Registers, spill bytes and static shared memory that ptxas printed
+    (``-Xptxas -v``) for each instantiation of the kernels in ``names``,
+    beside ``smem``: the dynamic shared memory of the path's launch."""
+    props, fn = {}, None
+    for line in built.log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn is None or not any(n in fn for n in names):
+            continue
+        entry = props.setdefault(fn, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            entry["static_smem"] = int(sm.group(1)) if sm else 0
+    for fn, entry in sorted(props.items()):
+        log(f"  ptxas {fn}: {entry}")
+    log(f"  dynamic shared memory at the path's shapes: {smem}")
+    return props
 
 
 def time_kernel(name, kern, plain, bound, shape, library=None):
@@ -1423,6 +1466,27 @@ def phase_lm_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref):
         f"granite decode B={q.shape[0]} Hq={q.shape[1]} Hkv={k.shape[1]} "
         f"Skv={k.shape[2]} kv_len={n}",
         lambda: sdpa(q, k[:, :, :n], v[:, :, :n], enable_gqa=True))
+    # the same call over the full 512-row cache (max_len), where the keys
+    # are split across a cluster of blocks
+    skv = k.shape[2]
+    kw512 = dict(kw, q_offset=skv - 1, kv_len=skv)
+    k512, v512 = randn(*k.shape), randn(*v.shape)
+    fa_err = max(fa_err, check_flash(fa_ops, fa_ref, "granite_decode_kv512",
+                                     q, k512, v512, kw512))
+    timings["flash_attention_decode512"] = time_kernel(
+        "flash_attention_decode512",
+        lambda: fa_ops.flash_attention(q, k512, v512, **kw512),
+        lambda: fa_ref.mha_plain(q, k512, v512, **kw512),
+        flash_bound(q, k512, kw512),
+        f"granite decode B={q.shape[0]} Hq={q.shape[1]} Hkv={k.shape[1]} "
+        f"Skv={skv} kv_len={skv}",
+        lambda: sdpa(q, k512, v512, enable_gqa=True))
+    lib = fa_ops.library()
+    ptxas_report(lib, ("decode_kernel", "prefill_kernel"), {
+        f"{shape} {dt}": lib.lib.flash_attention_smem(hq, hkv, sq, 64, code)
+        for shape, (hq, hkv, sq) in (("decode", (32, 8, 1)),
+                                     ("prefill", (32, 8, 2048)))
+        for dt, code in (("float32", 0), ("bfloat16", 1))})
 
     cases = [  # name, (b, hq, hkv, sq, skv, d), kw, dtype
         ("prefill_2048", (1, 32, 8, 2048, 2048, 64), {}, torch.float32),
@@ -1455,6 +1519,12 @@ def phase_lm_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref):
         "flash_attention_prefill", lambda: fa_ops.flash_attention(q, k, v),
         lambda: fa_ref.mha_plain(q, k, v), flash_bound(q, k, kw),
         "prefill B=1 Hq=32 Hkv=8 S=2048 causal",
+        lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    q, k, v, kw = inputs["bf16_prefill_2048"]
+    timings["flash_attention_prefill_bf16"] = time_kernel(
+        "flash_attention_prefill_bf16", lambda: fa_ops.flash_attention(q, k, v),
+        lambda: fa_ref.mha_plain(q, k, v), flash_bound(q, k, kw),
+        "prefill B=1 Hq=32 Hkv=8 S=2048 causal bfloat16 (float32 maths)",
         lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
 
     calls, seen = record_serve(lm, "rwkv6-7b")

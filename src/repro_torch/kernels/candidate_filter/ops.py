@@ -26,6 +26,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "candidate_filter.cu"
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "candidate_filter": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _F, _F, _P, _P],
+    "candidate_filter_smem": [_L, _I],
 }
 _CNI_DTYPE = {"exact": torch.int64, "log": torch.float32}
 

@@ -9,13 +9,17 @@ and Hq a multiple of Hkv, and returns (B, Hq, Sq, D) in q's type.
 it are masked) are plain runtime integers, so one compiled kernel serves
 every decode position; the reference's jitted decode cannot pass its traced
 position to the Pallas kernel (ROADMAP C6).  Nothing is padded: the kernel
-masks the ragged edges itself.  The wrapper carries a ``launches`` counter
-that grows by one per kernel launch and nowhere else.
+masks the ragged edges itself, and a head dim outside {16, 32, 64, 128} is
+padded with zero columns to the next of them (the scale stays 1/sqrt(D)).
+Each call is one kernel launch: the decode kernel below 16 query rows, the
+prefill kernel from 16 up.  The wrapper carries a ``launches`` counter that
+grows by one per kernel launch and nowhere else.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import torch
@@ -25,13 +29,15 @@ from repro_torch.kernels.flash_attention import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _P],
+                        _I, _I, _F, _P],
+    "flash_attention_smem": [_I, _I, _I, _I, _I],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # the widths the kernels are built for
 
 
 def library() -> _build.BuiltLibrary:
@@ -82,20 +88,30 @@ def _launch(q, k, v, causal, window, q_offset, kv_len):
         raise ValueError(f"head dim {d} is above the kernel's {MAX_HEAD_DIM}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    width = next(w for w in KERNEL_HEAD_DIMS if w >= d)
+    q, k, v = (_aligned(x, width) for x in (q, k, v))
     out = torch.empty_like(q)
     if out.numel():
         rc = library().lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, hq, hkv, sq, skv, d, int(causal),
+            b, hq, hkv, sq, skv, width, int(causal),
             0 if window is None else int(window), q_offset,
             skv if kv_len is None else int(kv_len), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
+            1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
         )
         if rc != 0:
             raise RuntimeError(f"flash_attention launch failed with cudaError {rc}")
         flash_attention.launches += 1
-    return out
+    return out if width == d else out[..., :d]
+
+
+def _aligned(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` contiguous, ``width`` wide (zero columns appended) and on a
+    16-byte boundary, as the kernels' 16-byte copies need."""
+    if x.shape[-1] != width:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 flash_attention.launches = 0

@@ -49,3 +49,45 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.exp(logits - logits.amax(-1, keepdim=True))
     probs = probs / probs.sum(-1, keepdim=True).clamp_min(1e-30)
     return torch.einsum("bhqk,bhkd->bhqd", probs, vv).to(q.dtype)
+
+
+def mha_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    n_splits: int, *, causal: bool = True, window=None,
+                    q_offset: int = 0, kv_len=None) -> torch.Tensor:
+    """The decode kernel's algorithm in plain PyTorch (tests only): the keys
+    below ``min(Skv, kv_len)`` are cut into ``n_splits`` contiguous chunks;
+    each chunk keeps its own running max m, sum l and accumulator over the
+    keys a row may see (a chunk that sees none has m = -1e30, l = 0), and
+    the chunks merge in order with the log-sum-exp rescale, a chunk with
+    l = 0 at weight 0.  A row that sees no key at all comes out 0.
+    Returns (B, Hq, Sq, D) in q.dtype."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    end = skv if kv_len is None else min(skv, kv_len)
+    kk = k.float().repeat_interleave(group, dim=1)
+    vv = v.float().repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / math.sqrt(d)
+    mask = visible_mask(sq, skv, causal=causal, window=window,
+                        q_offset=q_offset, kv_len=end, device=q.device)
+    size = -(-end // n_splits) if end else 0
+    parts = []
+    for c in range(n_splits):
+        lo, hi = min(c * size, end), min((c + 1) * size, end)
+        vis = mask[:, lo:hi]
+        s = logits[..., lo:hi]
+        s = torch.where(vis, s, torch.full_like(s, NEG_INF))
+        m = s.amax(-1, keepdim=True) if hi > lo else \
+            torch.full(logits.shape[:-1] + (1,), NEG_INF, device=q.device)
+        p = torch.where(vis, torch.exp(s - m), torch.zeros_like(s))
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum("bhqk,bhkd->bhqd", p, vv[:, :, lo:hi])))
+    seen = [torch.where(l > 0, m, torch.full_like(m, NEG_INF)) for m, l, _ in parts]
+    top = torch.stack(seen).amax(0)
+    total_l = torch.zeros_like(top)
+    total = torch.zeros(b, hq, sq, d, device=q.device)
+    for m, l, acc in parts:  # fixed order
+        w = torch.where(l > 0, torch.exp(m - top), torch.zeros_like(m))
+        total_l = total_l + l * w
+        total = total + acc * w
+    return (total / total_l.clamp_min(1e-30)).to(q.dtype)

@@ -197,7 +197,12 @@ def boundary_cells(data, query):
 
 
 @pytest.mark.parametrize("mode", ["exact", "log"])
-@pytest.mark.parametrize("lead,v,u", [((), 1000, 7), ((), 33, 1), ((4,), 2051, 16)])
+@pytest.mark.parametrize("lead,v,u", [
+    ((), 1000, 7), ((), 33, 1), ((4,), 2051, 16),
+    # V not a multiple of a chunk's 256 rows, B 4, ragged output spans
+    ((4,), 1000, 1), ((4,), 777, 3), ((4,), 3001, 16), ((4,), 1283, 33),
+    ((), 70_001, 10),
+])
 def test_candidate_filter_equals_plain_version(cuda, mode, lead, v, u):
     rng = np.random.default_rng(v + u)
     data = random_digests(rng, lead, v, 3, mode)
@@ -338,7 +343,17 @@ FLASH_CASES = [  # (b, hq, hkv, sq, skv, d, causal, window, q_offset, kv_len)
     (8, 32, 8, 1, 512, 64, True, None, 200, 201),   # granite decode
     (1, 32, 8, 300, 300, 64, True, None, 0, None),  # ragged prefill
     (1, 4, 2, 33, 200, 128, True, 50, 100, 133),    # chunked prefill, window
+    (1, 32, 8, 1000, 1000, 64, True, None, 0, None),  # prefill, ragged tiles
+    (1, 32, 8, 2048, 2048, 64, True, None, 0, None),  # prefill at full length
+    (8, 32, 8, 1, 512, 64, True, 40, 300, 301),     # windowed decode
+    (2, 8, 2, 5, 512, 64, True, None, 200, 205),    # decode, Sq 5
+    (2, 4, 2, 1, 100, 48, True, None, 60, 61),      # D 48: padded columns
+    (1, 4, 2, 40, 40, 80, True, None, 0, None),     # D 80 prefill: padded
 ]
+# the decode sweep: kv_len across tile and cluster edges, GQA groups 1, 4, 8
+FLASH_CASES += [(4, 8 * g, 8, 1, 512, d, True, None, n - 1, n)
+                for n in (1, 31, 32, 33, 94, 129, 512) for g in (1, 4, 8)
+                for d in (64, 128)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -357,6 +372,24 @@ def test_flash_attention_equals_plain_version(cuda, case, dtype):
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", [
+    (8, 32, 8, 1, 512, 64, True, None, 93, 94),     # granite decode
+    (8, 32, 8, 1, 512, 64, True, None, 511, 512),   # full cache: a cluster
+    (1, 32, 8, 2048, 2048, 64, True, None, 0, None),  # prefill
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_is_deterministic(cuda, case, dtype):
+    """Two calls on the same inputs are equal bit for bit: every sum runs
+    in a fixed order, with no atomics."""
+    b, hq, hkv, sq, skv, d, causal, window, q_offset, kv_len = case
+    gen = torch.Generator(cuda).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    first = fa_ops.flash_attention(q, k, v, causal, window, q_offset, kv_len)
+    second = fa_ops.flash_attention(q, k, v, causal, window, q_offset, kv_len)
+    assert torch.equal(first, second)
 
 
 WKV_CASES = [  # (b, h, t, dk, dv)
