@@ -13,8 +13,15 @@ Phases:
               nvcc each, all started together; prints ptxas's resource
               lines and the build seconds.
 3. kernels  — each kernel against its plain PyTorch version: the embed-join
-              kernels at the shapes of real join levels (recorded from a
-              HUMAN query and a join-heavy query), cni_encode and
+              kernels at the shapes of real join levels (every level slice
+              recorded from a HUMAN query and a join-heavy query, and
+              ragged variants: a dead tail, one row, inert J 1, T 16,
+              three passes of candidates and a tail), the count and emit
+              kernels timed at the join-heavy level (also with the L2
+              flushed) and at the largest HUMAN level, beside the MB of
+              32-byte sectors their lookups touch, the cost of building
+              the reference's int8 elab[:, cand] view, their launch plan
+              and ptxas's registers; cni_encode and
               candidate_filter (both modes) at the shapes of real ILGF
               rounds (the scale query's and a HUMAN query's first round, and
               a batched HUMAN round), plus ragged edges (saturated hubs,
@@ -135,6 +142,7 @@ The last line of a passing run is
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import functools
 import json
@@ -248,11 +256,22 @@ def cells(args) -> int:
 
 def ragged_variants(args, rng):
     """Edge cases around one real level: R not a multiple of 32 with a dead
-    tail, an inert single constraint, a 16-column table, all on the
-    level's real 128-padded candidate list (invalid tail included)."""
+    tail, one row, an inert single constraint, a 16-column table, all on
+    the level's real 128-padded candidate list (invalid tail included),
+    and the level's candidates repeated into a list of three block passes
+    of the count and emit kernels (8 warps x 32 lanes x K 8 = 2048) and a
+    ragged tail (two of the emit kernel's windows of two passes)."""
     table, row_valid, cand, cand_valid, elab, qp, ql, qv = args
     dev = table.device
-    out = []
+    out = [("one_row", (table[:1].contiguous(), row_valid[:1].contiguous(),
+                        cand, cand_valid, elab, qp, ql, qv))]
+    c3 = 3 * 2048 + 77
+    reps = -(-c3 // cand.shape[0])
+    out.append(("three_passes", (table[:301].contiguous(),
+                                 row_valid[:301].contiguous(),
+                                 cand.repeat(reps)[:c3].contiguous(),
+                                 cand_valid.repeat(reps)[:c3].contiguous(),
+                                 elab, qp, ql, qv)))
     r = min(table.shape[0], 1000) - 19  # 981 or 109: not a multiple of 32
     rv = row_valid[:r].clone()
     rv[-7:] = False
@@ -345,6 +364,35 @@ def device_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(stop) / (replays * per_graph)
 
 
+def cold_device_ms(fn, flush, per_graph: int = 20, replays: int = 10) -> float:
+    """Device time per launch with the 50 MB L2 cold: ``device_ms`` of the
+    launch after a write of ``flush`` (64 MB), less ``device_ms`` of the
+    write alone."""
+    def both():
+        flush.zero_()
+        fn()
+    return (device_ms(both, per_graph, replays)
+            - device_ms(flush.zero_, per_graph, replays))
+
+
+def sector_mb(args) -> float:
+    """MB of 32-byte sectors the level's label lookups touch: for each
+    live row and live constraint, the distinct sectors of the mapped
+    neighbour's elab row under the valid candidates.  The byte bound counts
+    4 bytes a lookup; a warp's lookups arrive from L2 a sector at a time."""
+    table, row_valid, cand, cand_valid, elab, qp, _, qv = args
+    n = elab.shape[0]
+    c = cand[cand_valid].long()
+    total = 0
+    for col in qp[qv].long().tolist():
+        m = table[row_valid][:, col].long()
+        if m.numel() == 0 or c.numel() == 0:
+            continue
+        keys = ((m[:, None] * n + c[None, :]) // 8).sort(1).values
+        total += m.numel() + int((keys[:, 1:] != keys[:, :-1]).sum())
+    return total * 32 / 1e6
+
+
 def bound_of(args, out_bytes: int, extra_in_bytes: int = 0):
     """Least time for one join level: bytes each input must be read once
     (elab only at the (mapped neighbour, candidate) entries this level's
@@ -376,48 +424,84 @@ def phase_kernels(ops, ref, search, core, graphs, dev):
     real_h = max(levels_h, key=cells)
     real_j = max(levels_j, key=cells)
     log(f"[3 kernels] recorded {len(levels_h)} HUMAN and {len(levels_j)} "
-        f"join-heavy level slices; checking the largest of each")
+        f"join-heavy level slices; checking each, and ragged variants of "
+        f"the largest join-heavy one")
     max_err = {"embed_join_count": 0, "embed_join_grid": 0, "embed_join_emit": 0}
-    cases = [("HUMAN_level", real_h), ("join_level", real_j)]
+    cases = [(f"HUMAN_level_{i}", a) for i, a in enumerate(levels_h)]
+    cases += [(f"join_level_{i}", a) for i, a in enumerate(levels_j)]
     cases += ragged_variants(real_j, rng)
     for i, (name, args) in enumerate(cases):
         errs = check_level(ops, ref, name, args, row_base=0 if i == 0 else 4096 + i)
         for k, v in errs.items():
             max_err[k] = max(max_err[k], v)
 
-    # times at the join-heavy level (the largest real level)
-    args = real_j
-    table = args[0]
-    count_p = ref.embed_join_count_ref(*args)
-    row_off = count_p.cumsum(0) - count_p
-    total = int(count_p.sum())
-    idx = torch.zeros(total, dtype=torch.int64, device=table.device)
-    r, c = table.shape[0], args[2].shape[0]
-    fns = {
-        "embed_join_count": (lambda: ops.embed_join_count(*args),
-                             lambda: ref.embed_join_count_ref(*args),
-                             bound_of(args, out_bytes=4 * r)),
-        "embed_join_grid": (lambda: ops.embed_join(*args),
-                            lambda: ref.embed_join_grid_ref(*args),
-                            bound_of(args, out_bytes=r * c)),
-        "embed_join_emit": (lambda: ops.embed_join_emit(idx, *args, row_off, 0),
-                            lambda: ref.embed_join_emit_ref(idx, *args, row_off, 0),
-                            bound_of(args, out_bytes=8 * total,
-                                     extra_in_bytes=8 * r)),
-    }
+    ptxas_report(ops.library(), ("embed_join_count_kernel",
+                                 "embed_join_emit_kernel"), {
+        f"{tag} {kind}": join_plan(ops, lvl, kind)
+        for tag, lvl in (("HUMAN", real_h), ("join", real_j))
+        for kind in ("count", "emit")})
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timings = {}
-    for name, (kern, plain, (bound_ms, bound_by)) in fns.items():
-        ms = device_ms(kern)
-        eager_ms = time_ms(kern, 200)
-        plain_ms = time_ms(plain, 20)
-        timings[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by}
-        log(f"  time {name}: kernel {ms:.5f} ms on the device "
-            f"({eager_ms:.5f} ms per eager wrapper call), plain "
-            f"{plain_ms:.5f} ms per eager call, bound {bound_ms:.5f} ms "
-            f"({bound_by}) at R={r} C={c} "
-            f"T={table.shape[1]} J={args[5].shape[0]} survivors={total}")
+    # the join-heavy level (the largest real level) gives the recorded
+    # times; the HUMAN level is the launch-bound shape most launches see
+    for tag, args in (("join", real_j), ("HUMAN", real_h)):
+        table, c = args[0], args[2].shape[0]
+        r = table.shape[0]
+        count_p = ref.embed_join_count_ref(*args)
+        row_off = count_p.cumsum(0) - count_p
+        total = int(count_p.sum())
+        idx = torch.zeros(total, dtype=torch.int64, device=table.device)
+        fns = {
+            "embed_join_count": (lambda: ops.embed_join_count(*args),
+                                 lambda: ref.embed_join_count_ref(*args),
+                                 bound_of(args, out_bytes=4 * r)),
+            "embed_join_emit": (lambda: ops.embed_join_emit(idx, *args, row_off, 0),
+                                lambda: ref.embed_join_emit_ref(idx, *args, row_off, 0),
+                                bound_of(args, out_bytes=8 * total,
+                                         extra_in_bytes=8 * r)),
+        }
+        if tag == "join":
+            fns["embed_join_grid"] = (lambda: ops.embed_join(*args),
+                                      lambda: ref.embed_join_grid_ref(*args),
+                                      bound_of(args, out_bytes=r * c))
+        sectors = sector_mb(args)
+        shape = (f"R={r} C={c} T={table.shape[1]} J={args[5].shape[0]} "
+                 f"survivors={total}; lookups touch {sectors:.3f} MB of "
+                 f"32-byte sectors")
+        for name, (kern, plain, (bound_ms, bound_by)) in fns.items():
+            ms = device_ms(kern)
+            eager_ms = time_ms(kern, 200)
+            plain_ms = time_ms(plain, 20)
+            cold = ""
+            if tag == "join" and name != "embed_join_grid":
+                cold_ms = cold_device_ms(kern, flush)
+                cold = f", {cold_ms:.5f} ms with L2 flushed"
+            if tag == "join":
+                timings[name] = {"ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by}
+            log(f"  time {name} ({tag} level): kernel {ms:.5f} ms on the "
+                f"device{cold} ({eager_ms:.5f} ms per eager wrapper call), "
+                f"plain {plain_ms:.5f} ms per eager call, bound {bound_ms:.5f} "
+                f"ms ({bound_by}), sectors at {sectors / ms / 1e3:.3f} TB/s, "
+                f"at {shape}")
+        # the reference's operand: the candidate-restricted int8 view
+        # elab[:, cand], built once per level; its build alone, against the
+        # kernels' direct reads of the (N, N) matrix
+        elab, cand = args[4], args[2].long()
+        view_ms = device_ms(lambda: elab.index_select(1, cand).to(torch.int8))
+        log(f"  time elab[:, cand] int8 view build ({tag} level): "
+            f"{view_ms:.5f} ms on the device at N={elab.shape[0]} C={c}")
     return max_err, timings
+
+
+def join_plan(ops, args, kind):
+    """The count or emit kernel's launch at one level's shapes."""
+    table, _, cand, *_, q_pos = args[:6]
+    out = (ctypes.c_int * 5)()
+    ops.library().lib.embed_join_plan(table.shape[0], cand.shape[0],
+                                      table.shape[1], q_pos.shape[0],
+                                      int(kind == "emit"), out)
+    return dict(zip(("blocks", "threads", "K", "rows", "smem"), out))
 
 
 # ---------------------------------------------------------------------------

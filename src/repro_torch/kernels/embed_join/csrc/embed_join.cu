@@ -1,7 +1,7 @@
 // Embed-join kernels for Hopper (sm_90a): the validity grid, the per-row
 // count pass and the emit pass of one BFS-join expansion level.
 //
-// Every kernel evaluates the same cell test (cell_valid below):
+// Every kernel evaluates the same cell test:
 //
 //   row_valid[r] && cand_valid[c]
 //     && for all j < J with q_valid[j]: elab[table[r, q_pos[j]] * N + cand[c]] == q_lab[j]
@@ -14,21 +14,37 @@
 // gather.  Padded rows and candidates hold vertex id 0, a real vertex, so
 // they are masked by row_valid / cand_valid and never by value.
 //
-// embed_join_count_kernel
+// embed_join_count_kernel<K, G>
 //   Replaces: embed_join_count_pallas / _embed_join_count_kernel
 //             (src/repro/kernels/embed_join/kernel.py:174 and :103).
 //   Bound:    bytes.  Per level it must read the table (R*T*4), the
 //             candidate list and masks, and for each distinct mapped
 //             neighbour the candidate entries of its elab row (4 bytes per
 //             (neighbour, candidate) pair), then write R*4 bytes of counts;
-//             the work per cell is J+T integer compares, far below the
-//             card's 3.35 TB/s times its integer rate.
-//   Design:   one warp per row.  The row and its J mapped elab row offsets
-//             sit in shared memory; lanes stride over candidates, so a warp
-//             reads 32 consecutive cand[] entries and, candidates being
-//             sorted ascending, elab entries of one row close together.
-//             __ballot_sync + __popc fold the row sum in registers: the
-//             (R, C) grid never reaches device memory.
+//             the work per cell is J+T integer compares.  That is under a
+//             microsecond at the path's shapes.  What the card really pays
+//             is the launch, a few dependent round trips, and the L2
+//             traffic of the lookups: every row reads its own mapped elab
+//             row, and a warp's 32 lookups arrive as 32-byte sectors (at the
+//             join-heavy level, 41.7 MB of sectors for 4,834-wide rows and
+//             candidates about one in five).
+//   Design:   the Pallas kernel evaluates a whole (rows x 128) tile with
+//             every lookup in flight; so does this one, cut to Hopper's
+//             parallelism.  A block owns `rows` consecutive rows (about 4
+//             blocks an SM, one row a block at HUMAN sizes) and its 4-8
+//             warps split the candidate list into contiguous spans of 32*K
+//             candidates (a lane takes K of them, 32 apart, and keeps them
+//             in registers for all the block's rows; a longer list is walked
+//             in passes).  The block stages its rows and the live
+//             constraints in shared memory with one round trip of
+//             independent loads.  Per constraint a lane issues the G x K
+//             lookups of G rows before it compares any (no early exit: no
+//             chain of dependent loads).  Only a ballot the label test left
+//             non-empty runs the injectivity compares against the rows in
+//             shared memory (a warp-uniform branch).  Each warp sums
+//             __popc(__ballot_sync) in registers; the block folds its warps
+//             in warp order and makes one store per row.  The (R, C) grid
+//             never reaches device memory.
 //
 // embed_join_grid_kernel
 //   Replaces: embed_join_pallas / _embed_join_kernel
@@ -39,18 +55,28 @@
 //             threads take neighbouring candidates of one row, so the grid
 //             write and the cand[] read coalesce.
 //
-// embed_join_emit_kernel
+// embed_join_emit_kernel<K, G>
 //   Replaces: the emit pass embed_join_emit_raw
 //             (src/repro/kernels/embed_join/ops.py:155): the grid kernel,
 //             then a cumsum for the in-row rank, then a scatter with
 //             mode="drop".
 //   Bound:    bytes: the count kernel's reads plus row_off (R*8) and the
-//             surviving cell ids (8 bytes each) written once.
-//   Design:   one warp per row, 32-candidate chunks in order.  A lane's
-//             exclusive in-row rank is __popc(ballot & lanemask_lt) plus the
-//             running count of earlier chunks, so survivors are written at
-//             row_off[r] + rank in flat row-major order without a grid, a
-//             scan pass or atomics.
+//             surviving cell ids (8 bytes each) written once; the lookups'
+//             sectors and the round trips, as for the count kernel.
+//   Design:   the count kernel's blocks, spans and lookups (about 2 blocks
+//             an SM).  Each warp stores its ballot words of every row in
+//             shared memory, where a row's words run in candidate order;
+//             with no barrier between rows, the warps run through them as
+//             the count kernel's do.  After one barrier, a warp per row
+//             scans the words' popcounts (32 words at a time, warp
+//             shuffles) and walks the non-empty words in order, a lane per
+//             bit, writing each survivor's (row_base + r) * C + c at
+//             row_off[r] + its rank: the flat row-major slot order, with no
+//             grid in memory, no scan pass and no atomics, so the output is
+//             the same bit for bit on every run.  The row offsets load
+//             while the block stages.  A candidate list longer than two
+//             passes is taken two passes (a window) at a time.  Slots >=
+//             out_cap are dropped.
 //
 // The C functions launch on the caller's stream, do not synchronise, and
 // return cudaGetLastError() so the Python wrapper can raise on a refused
@@ -62,7 +88,13 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 8;  // warps (rows) per block of the row kernels
+constexpr int kMinWarps = 4;   // warps per block of the row kernels
+constexpr int kMaxWarps = 8;
+constexpr int kMaxK = 8;       // candidates a lane takes per pass
+constexpr int kMaxRows = 16;   // rows per block
+constexpr int kRowGroup = 2;   // rows whose lookups are in flight together
+constexpr int kMaxWindow = 2;  // emit: passes of ballots held at once
+constexpr int kSMs = 132;
 constexpr int kGridThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -82,104 +114,338 @@ struct JoinArgs {
   int J;
 };
 
-// Cell test against one row held in shared memory: s_off[j] is the flat
-// offset of the mapped neighbour's elab row, or -1 for an inert constraint.
-__device__ __forceinline__ bool cell_valid(const int* s_row, int T,
-                                           const long long* s_off,
-                                           const int* s_lab, int J,
-                                           const int* __restrict__ elab,
-                                           int v) {
-  for (int j = 0; j < J; ++j) {
-    const long long off = s_off[j];
-    if (off >= 0 && __ldg(elab + off + v) != s_lab[j]) return false;
-  }
-  for (int t = 0; t < T; ++t) {
-    if (s_row[t] == v) return false;
-  }
-  return true;
-}
-
-// Per-warp shared-memory slices: kRowsPerBlock * (J offsets, J labels, T ids).
-struct WarpSlices {
-  long long* off;
-  int* lab;
-  int* row;
+// Launch shape of the count and emit kernels.
+struct Plan {
+  int warps;   // warps per block
+  int k;       // candidates a lane takes per pass
+  int rows;    // rows per block
+  int group;   // rows whose lookups are in flight together (1 or kRowGroup)
+  int window;  // emit: passes whose ballots are held in shared memory at once
+  int blocks;
+  size_t smem; // dynamic shared memory bytes
 };
 
-__device__ __forceinline__ WarpSlices warp_slices(int warp, int J, int T) {
+// Shared memory of a block: the emit's running row offsets, the live
+// constraints' table columns and labels, its rows and their validity, then
+// the count's warp sums (rows x warps) or the emit's ballot words (rows x
+// window x warps x K).
+size_t row_kernel_smem(const Plan& p, int T, int J, bool emit) {
+  const size_t tail = emit ? static_cast<size_t>(p.rows) * p.window * p.warps * p.k
+                           : static_cast<size_t>(p.rows) * p.warps;
+  return static_cast<size_t>(p.rows) * sizeof(long long) +
+         (2 * static_cast<size_t>(J) + static_cast<size_t>(p.rows) * (T + 1) +
+          tail) * sizeof(int);
+}
+
+// The smallest block (4-8 warps, K a power of two up to 8) whose pass
+// covers the candidate list.  Rows per block: a power of two that leaves
+// about 4 blocks an SM for the count kernel (no barrier: more blocks hide
+// more latency) and about 2 for the emit kernel (a barrier a window:
+// fewer, fuller blocks), one row a block at HUMAN sizes.
+Plan plan_rows(int R, int C, int T, int J, bool emit) {
+  Plan p;
+  const int chunks = (C + kWarp - 1) / kWarp;  // 32-candidate lane chunks
+  p.warps = chunks < kMinWarps ? kMinWarps
+            : chunks < kMaxWarps ? chunks : kMaxWarps;
+  p.k = 1;
+  while (p.k < kMaxK && p.warps * p.k < chunks) p.k *= 2;
+  const int want = R / ((emit ? 2 : 4) * kSMs);
+  p.rows = 1;
+  while (p.rows < kMaxRows && p.rows * 2 <= want) p.rows *= 2;
+  p.group = p.rows > 1 ? kRowGroup : 1;
+  const int passes = (C + p.warps * kWarp * p.k - 1) / (p.warps * kWarp * p.k);
+  p.window = passes < 1 ? 1 : passes < kMaxWindow ? passes : kMaxWindow;
+  p.blocks = (R + p.rows - 1) / p.rows;
+  p.smem = row_kernel_smem(p, T, J, emit);
+  return p;
+}
+
+struct RowSmem {
+  long long* base;  // (rows,) emit: the next slot of each row
+  int* jpos;        // (jv,) table column of each live constraint
+  int* lab;         // (jv,) its label
+  int* row;         // (rows, T) the block's rows
+  int* rv;          // (rows,) their validity
+  int* red;         // count: warp sums; emit: ballot words
+};
+
+__device__ __forceinline__ RowSmem carve(int rows, int J, int T) {
   extern __shared__ long long smem[];
-  WarpSlices s;
-  s.off = smem + warp * J;
-  int* ints = reinterpret_cast<int*>(smem + kRowsPerBlock * J);
-  s.lab = ints + warp * J;
-  s.row = ints + kRowsPerBlock * J + warp * T;
+  RowSmem s;
+  s.base = smem;
+  s.jpos = reinterpret_cast<int*>(smem + rows);
+  s.lab = s.jpos + J;
+  s.row = s.jpos + 2 * J;
+  s.rv = s.row + rows * T;
+  s.red = s.rv + rows;
   return s;
 }
 
-// Loads row r into the warp's slices (all 32 lanes take part).
-__device__ __forceinline__ void load_row(const JoinArgs& a, int r, int lane,
-                                         const WarpSlices& s) {
-  const int* row = a.table + static_cast<long long>(r) * a.T;
-  for (int t = lane; t < a.T; t += kWarp) s.row[t] = row[t];
-  for (int j = lane; j < a.J; j += kWarp) {
-    s.off[j] = a.q_valid[j]
-                   ? static_cast<long long>(row[a.q_pos[j]]) * a.N
-                   : -1ll;
-    s.lab[j] = a.q_lab[j];
-  }
-  __syncwarp();
-}
-
-__global__ void embed_join_count_kernel(JoinArgs a, int* __restrict__ counts) {
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int r = blockIdx.x * kRowsPerBlock + warp;
-  if (r >= a.R) return;  // warp-uniform
-  if (!a.row_valid[r]) {
-    if (lane == 0) counts[r] = 0;
-    return;
-  }
-  const WarpSlices s = warp_slices(warp, a.J, a.T);
-  load_row(a, r, lane, s);
-  int cnt = 0;
-  for (int c0 = 0; c0 < a.C; c0 += kWarp) {
-    const int c = c0 + lane;
-    bool ok = false;
-    if (c < a.C && a.cand_valid[c]) {
-      ok = cell_valid(s.row, a.T, s.off, s.lab, a.J, a.elab, a.cand[c]);
+// Stages the block's nrows rows from r0 and their validity, and compacts
+// the live constraints (warp 0, 32 at a time); every load is independent
+// of the others, so the stage costs one round trip.  Returns the live
+// constraint count (jv).
+__device__ int stage_rows(const JoinArgs& a, const RowSmem& s, int r0,
+                          int nrows) {
+  __shared__ int s_jv;
+  const int tid = threadIdx.x;
+  if (tid < kWarp) {
+    int jv = 0;
+    for (int j0 = 0; j0 < a.J; j0 += kWarp) {
+      const int j = j0 + tid;
+      const bool in = j < a.J;
+      const bool on = in && a.q_valid[j];
+      const int pos = in ? a.q_pos[j] : 0;
+      const int lab = in ? a.q_lab[j] : 0;
+      const unsigned m = __ballot_sync(kFull, on);
+      if (on) {
+        const int at = jv + __popc(m & ((1u << tid) - 1u));
+        s.jpos[at] = pos;
+        s.lab[at] = lab;
+      }
+      jv += __popc(m);
     }
-    cnt += __popc(__ballot_sync(kFull, ok));
+    if (tid == 0) s_jv = jv;
   }
-  if (lane == 0) counts[r] = cnt;
+  const int* rows = a.table + static_cast<long long>(r0) * a.T;
+  for (int i = tid; i < nrows * a.T; i += blockDim.x) s.row[i] = __ldg(rows + i);
+  for (int i = tid; i < nrows; i += blockDim.x) s.rv[i] = a.row_valid[r0 + i];
+  __syncthreads();
+  return s_jv;
 }
 
-__global__ void embed_join_emit_kernel(JoinArgs a,
-                                       const long long* __restrict__ row_off,
-                                       long long row_base,
-                                       long long* __restrict__ idx_map,
-                                       long long out_cap) {
+// A lane's K candidates of a pass: c0 + k*32 + lane (id and mask loaded
+// side by side).
+template <int K>
+__device__ __forceinline__ void load_cands(const JoinArgs& a, int c0, int lane,
+                                           int (&v)[K], bool (&live)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = c0 + k * kWarp + lane;
+    const bool in = c < a.C;
+    const bool valid = in && a.cand_valid[c];
+    v[k] = in ? __ldg(a.cand + c) : 0;
+    live[k] = valid;
+  }
+}
+
+// The cell test of G consecutive rows from g0 (rlive: the row exists and is
+// valid, warp-uniform) against a lane's K candidates, as ballots.  Per live
+// constraint, all G x K label lookups are issued before any is compared.
+// The injectivity compares run only for a ballot the label test left
+// non-empty (a warp-uniform branch), against the row in shared memory.
+template <int K, int G>
+__device__ __forceinline__ void test_group(const JoinArgs& a,
+                                           const RowSmem& s, int g0,
+                                           const bool (&rlive)[G], int jv,
+                                           const int (&v)[K],
+                                           const bool (&live)[K],
+                                           unsigned (&bal)[G][K]) {
+  bool ok[G][K];
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) ok[i][k] = rlive[i] && live[k];
+  }
+  for (int j = 0; j < jv; ++j) {
+    const int col = s.jpos[j];
+    const int lab = s.lab[j];
+    int got[G][K];
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const long long off =
+          rlive[i] ? static_cast<long long>(s.row[(g0 + i) * a.T + col]) * a.N
+                   : 0;
+      const int* erow = a.elab + off;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        got[i][k] = rlive[i] && live[k] ? __ldg(erow + v[k]) : lab;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) ok[i][k] = ok[i][k] && got[i][k] == lab;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    const int* row = s.row + (g0 + i) * a.T;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      bal[i][k] = __ballot_sync(kFull, ok[i][k]);
+      if (bal[i][k]) {
+        for (int t = 0; t < a.T; ++t) ok[i][k] = ok[i][k] && v[k] != row[t];
+        bal[i][k] = __ballot_sync(kFull, ok[i][k]);
+      }
+    }
+  }
+}
+
+// Which of the G rows from g0 exist and are valid; false when none is.
+template <int G>
+__device__ __forceinline__ bool group_rows(const RowSmem& s, int g0, int nrows,
+                                           bool (&rlive)[G]) {
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    rlive[i] = g0 + i < nrows && s.rv[g0 + i];
+    any = any || rlive[i];
+  }
+  return any;
+}
+
+template <int K, int G>
+__global__ void __launch_bounds__(kMaxWarps * kWarp)
+    embed_join_count_kernel(JoinArgs a, int rows_per_block,
+                            int* __restrict__ counts) {
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const int r = blockIdx.x * kRowsPerBlock + warp;
-  if (r >= a.R || !a.row_valid[r]) return;  // warp-uniform
-  const WarpSlices s = warp_slices(warp, a.J, a.T);
-  load_row(a, r, lane, s);
+  const int warps = blockDim.x / kWarp;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int nrows = min(rows_per_block, a.R - r0);
+  const int per_pass = warps * kWarp * K;
+  const int passes = (a.C + per_pass - 1) / per_pass;
+  int v[K];
+  bool live[K];
+  // a single pass's candidates load while the block stages its rows
+  if (passes == 1) load_cands<K>(a, warp * kWarp * K, lane, v, live);
+  const RowSmem s = carve(rows_per_block, a.J, a.T);
+  const int jv = stage_rows(a, s, r0, nrows);
+  for (int g0 = 0; g0 < nrows; g0 += G) {
+    bool rlive[G];
+    if (!group_rows<G>(s, g0, nrows, rlive)) continue;  // block-uniform
+    int cnt[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) cnt[i] = 0;
+    for (int p = 0; p < passes; ++p) {
+      if (passes > 1) {
+        load_cands<K>(a, p * per_pass + warp * kWarp * K, lane, v, live);
+      }
+      unsigned bal[G][K];
+      test_group<K, G>(a, s, g0, rlive, jv, v, live, bal);
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) cnt[i] += __popc(bal[i][k]);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        if (g0 + i < nrows) s.red[(g0 + i) * warps + warp] = cnt[i];
+      }
+    }
+  }
+  __syncthreads();
+  for (int rr = threadIdx.x; rr < nrows; rr += blockDim.x) {
+    int sum = 0;
+    if (s.rv[rr]) {
+      for (int w = 0; w < warps; ++w) sum += s.red[rr * warps + w];
+    }
+    counts[r0 + rr] = sum;
+  }
+}
+
+// Writes the survivors of one row from its ballot words (chunk q holds
+// candidates c0 + 32q + lane, in candidate order): a warp scan of the
+// words' popcounts gives each chunk's first slot, then the warp walks the
+// non-empty chunks in order, a lane per bit, so slots follow the flat
+// row-major order.  Returns the row's survivor count.
+__device__ __forceinline__ int emit_row(const unsigned* words, int nwords,
+                                        long long slot, long long cell0,
+                                        long long* __restrict__ idx_map,
+                                        long long out_cap, int lane) {
   const unsigned lanemask_lt = (1u << lane) - 1u;
-  const long long base = row_off[r];
-  const long long cell_row = (row_base + r) * static_cast<long long>(a.C);
-  int running = 0;
-  for (int c0 = 0; c0 < a.C; c0 += kWarp) {
-    const int c = c0 + lane;
-    bool ok = false;
-    if (c < a.C && a.cand_valid[c]) {
-      ok = cell_valid(s.row, a.T, s.off, s.lab, a.J, a.elab, a.cand[c]);
+  int done = 0;
+  for (int q0 = 0; q0 < nwords; q0 += kWarp) {
+    const int q = q0 + lane;
+    const unsigned w = q < nwords ? words[q] : 0u;
+    const int n = __popc(w);
+    int incl = n;
+#pragma unroll
+    for (int d = 1; d < kWarp; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += y;
     }
-    const unsigned ballot = __ballot_sync(kFull, ok);
-    if (ok) {
-      const long long slot = base + running + __popc(ballot & lanemask_lt);
-      if (slot < out_cap) idx_map[slot] = cell_row + c;
+    const long long first = slot + done + incl - n;
+    unsigned nz = __ballot_sync(kFull, w != 0u);
+    while (nz) {  // warp-uniform
+      const int src = __ffs(nz) - 1;
+      nz &= nz - 1u;
+      const unsigned wq = __shfl_sync(kFull, w, src);
+      const long long at =
+          __shfl_sync(kFull, first, src) + __popc(wq & lanemask_lt);
+      if (((wq >> lane) & 1u) && at < out_cap) {
+        idx_map[at] = cell0 + static_cast<long long>(q0 + src) * kWarp + lane;
+      }
     }
-    running += __popc(ballot);
+    done += __shfl_sync(kFull, incl, kWarp - 1);
+  }
+  return done;
+}
+
+template <int K, int G>
+__global__ void __launch_bounds__(kMaxWarps * kWarp)
+    embed_join_emit_kernel(JoinArgs a, int rows_per_block, int window,
+                           const long long* __restrict__ row_off,
+                           long long row_base, long long* __restrict__ idx_map,
+                           long long out_cap) {
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int warps = blockDim.x / kWarp;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int nrows = min(rows_per_block, a.R - r0);
+  const int per_pass = warps * kWarp * K;
+  const int passes = (a.C + per_pass - 1) / per_pass;
+  int v[K];
+  bool live[K];
+  // a single pass's candidates load while the block stages its rows
+  if (passes == 1) load_cands<K>(a, warp * kWarp * K, lane, v, live);
+  const RowSmem s = carve(rows_per_block, a.J, a.T);
+  // the row offsets load while the block stages its rows
+  for (int i = threadIdx.x; i < nrows; i += blockDim.x) s.base[i] = row_off[r0 + i];
+  const int jv = stage_rows(a, s, r0, nrows);
+  const int row_words = window * warps * K;  // ballot words of a row
+  for (int p0 = 0; p0 < passes; p0 += window) {
+    const int np = min(window, passes - p0);
+    if (p0 > 0) __syncthreads();  // the last window's words are written out
+    // phase 1: each warp's ballots of every row and pass of the window
+    for (int g0 = 0; g0 < nrows; g0 += G) {
+      bool rlive[G];
+      if (!group_rows<G>(s, g0, nrows, rlive)) continue;  // block-uniform
+      for (int p = 0; p < np; ++p) {
+        if (passes > 1) {
+          load_cands<K>(a, (p0 + p) * per_pass + warp * kWarp * K, lane, v, live);
+        }
+        unsigned bal[G][K];
+        test_group<K, G>(a, s, g0, rlive, jv, v, live, bal);
+        if (lane == 0) {
+#pragma unroll
+          for (int i = 0; i < G; ++i) {
+            if (!rlive[i]) continue;
+            unsigned* words = reinterpret_cast<unsigned*>(s.red) +
+                              (g0 + i) * row_words + (p * warps + warp) * K;
+#pragma unroll
+            for (int k = 0; k < K; ++k) words[k] = bal[i][k];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // phase 2: a warp per row (rows warp, warp + warps, ...) writes its
+    // survivors in candidate order and moves the row's next slot on
+    for (int rr = warp; rr < nrows; rr += warps) {
+      if (!s.rv[rr]) continue;  // warp-uniform
+      const long long slot = s.base[rr];
+      const int done = emit_row(
+          reinterpret_cast<const unsigned*>(s.red) + rr * row_words,
+          np * warps * K, slot,
+          (row_base + r0 + rr) * static_cast<long long>(a.C) + p0 * per_pass,
+          idx_map, out_cap, lane);
+      __syncwarp();
+      if (lane == 0) s.base[rr] = slot + done;
+    }
   }
 }
 
@@ -231,10 +497,53 @@ JoinArgs make_args(const void* table, int R, int T, const void* row_valid,
   return a;
 }
 
-size_t row_kernel_smem(int J, int T) {
-  return static_cast<size_t>(kRowsPerBlock) *
-         (static_cast<size_t>(J) * (sizeof(long long) + sizeof(int)) +
-          static_cast<size_t>(T) * sizeof(int));
+using CountKernel = void (*)(JoinArgs, int, int*);
+using EmitKernel = void (*)(JoinArgs, int, int, const long long*, long long,
+                            long long*, long long);
+
+// The instantiations for a plan's K and row group G (nullptr for another K).
+template <int G>
+CountKernel count_kernel(int k) {
+  switch (k) {
+    case 1: return embed_join_count_kernel<1, G>;
+    case 2: return embed_join_count_kernel<2, G>;
+    case 4: return embed_join_count_kernel<4, G>;
+    case 8: return embed_join_count_kernel<8, G>;
+  }
+  return nullptr;
+}
+
+template <int G>
+EmitKernel emit_kernel(int k) {
+  switch (k) {
+    case 1: return embed_join_emit_kernel<1, G>;
+    case 2: return embed_join_emit_kernel<2, G>;
+    case 4: return embed_join_emit_kernel<4, G>;
+    case 8: return embed_join_emit_kernel<8, G>;
+  }
+  return nullptr;
+}
+
+int launch_count(const JoinArgs& a, const Plan& p, void* counts,
+                 void* stream) {
+  const CountKernel kernel = p.group > 1 ? count_kernel<kRowGroup>(p.k)
+                                         : count_kernel<1>(p.k);
+  kernel<<<p.blocks, p.warps * kWarp, p.smem,
+           static_cast<cudaStream_t>(stream)>>>(a, p.rows,
+                                                static_cast<int*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_emit(const JoinArgs& a, const Plan& p, const void* row_off,
+                long long row_base, void* idx_map, long long out_cap,
+                void* stream) {
+  const EmitKernel kernel = p.group > 1 ? emit_kernel<kRowGroup>(p.k)
+                                        : emit_kernel<1>(p.k);
+  kernel<<<p.blocks, p.warps * kWarp, p.smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      a, p.rows, p.window, static_cast<const long long*>(row_off), row_base,
+      static_cast<long long*>(idx_map), out_cap);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -248,12 +557,7 @@ int embed_join_count(const void* table, int R, int T, const void* row_valid,
                      void* counts, void* stream) {
   const JoinArgs a = make_args(table, R, T, row_valid, cand, C, cand_valid,
                                elab, N, q_pos, q_lab, q_valid, J);
-  const int blocks = (R + kRowsPerBlock - 1) / kRowsPerBlock;
-  embed_join_count_kernel<<<blocks, kRowsPerBlock * kWarp,
-                            row_kernel_smem(J, T),
-                            static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<int*>(counts));
-  return static_cast<int>(cudaGetLastError());
+  return launch_count(a, plan_rows(R, C, T, J, false), counts, stream);
 }
 
 int embed_join_emit(const void* table, int R, int T, const void* row_valid,
@@ -264,13 +568,8 @@ int embed_join_emit(const void* table, int R, int T, const void* row_valid,
                     long long out_cap, void* stream) {
   const JoinArgs a = make_args(table, R, T, row_valid, cand, C, cand_valid,
                                elab, N, q_pos, q_lab, q_valid, J);
-  const int blocks = (R + kRowsPerBlock - 1) / kRowsPerBlock;
-  embed_join_emit_kernel<<<blocks, kRowsPerBlock * kWarp,
-                           row_kernel_smem(J, T),
-                           static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const long long*>(row_off), row_base,
-      static_cast<long long*>(idx_map), out_cap);
-  return static_cast<int>(cudaGetLastError());
+  return launch_emit(a, plan_rows(R, C, T, J, true), row_off, row_base,
+                     idx_map, out_cap, stream);
 }
 
 int embed_join_grid(const void* table, int R, int T, const void* row_valid,
@@ -287,6 +586,18 @@ int embed_join_grid(const void* table, int R, int T, const void* row_valid,
                            static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<unsigned char*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The count (emit = 0) or emit (emit = 1) kernel's launch at these shapes:
+// out = {blocks, threads a block, K, rows a block, dynamic shared bytes}.
+int embed_join_plan(int R, int C, int T, int J, int emit, int* out) {
+  const Plan p = plan_rows(R, C, T, J, emit != 0);
+  out[0] = p.blocks;
+  out[1] = p.warps * kWarp;
+  out[2] = p.k;
+  out[3] = p.rows;
+  out[4] = static_cast<int>(p.smem);
+  return 0;
 }
 
 }  // extern "C"

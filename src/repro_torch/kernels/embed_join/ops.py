@@ -36,6 +36,7 @@ _ARGTYPES = {
     "embed_join_count": _JOIN_ARGTYPES + [_P, _P],
     "embed_join_grid": _JOIN_ARGTYPES + [_P, _P],
     "embed_join_emit": _JOIN_ARGTYPES + [_P, _L, _P, _L, _P],
+    "embed_join_plan": [_I, _I, _I, _I, _I, _P],
 }
 
 

@@ -89,6 +89,107 @@ def test_kernels_equal_plain_versions(cuda, shape):
     assert after["embed_join_emit"] - before["embed_join_emit"] == 2
 
 
+# the count and emit kernels' widest block pass: 8 warps x 32 lanes x K 8
+PASS = 8 * 32 * 8
+
+EDGE_SHAPES = {  # (R, T, C, N, J) at the edges of the kernels' blocks
+    "C_one_pass_K4": (300, 4, 1024, 1100, 2),
+    "C_one_more_K4": (300, 4, 1025, 1100, 2),
+    "C_one_pass": (64, 3, PASS, PASS + 100, 2),
+    "C_one_more": (64, 3, PASS + 1, PASS + 100, 2),
+    "C_three_passes_ragged": (40, 3, 3 * PASS + 77, 3 * PASS + 177, 2),
+    "R1": (1, 3, 640, 700, 2),
+    "T16_two_rows_a_block": (600, 16, 1100, 1200, 3),
+}
+
+
+def edge_level(name, device):
+    """The operands of one edge case: a random level, or one of them with
+    every row dead or a single inert constraint."""
+    if name == "all_rows_invalid":
+        args = list(random_level(300, 3, 640, 700, 2, seed=1, device=device))
+        args[1] = torch.zeros_like(args[1])
+    elif name == "inert_J1":
+        args = list(random_level(500, 3, 1024, 1100, 1, seed=2, device=device))
+        args[7] = torch.zeros_like(args[7])
+    else:
+        shape = EDGE_SHAPES[name]
+        args = random_level(*shape, seed=sum(shape), device=device)
+    return tuple(args)
+
+
+def emit_guarded(args, row_off, row_base, cap, guard=64):
+    """The emit kernel into the first ``cap`` slots of a buffer filled with
+    -7; returns the whole buffer, so a write past ``cap`` shows."""
+    buf = torch.full((cap + guard,), -7, dtype=torch.int64, device=args[0].device)
+    ops.embed_join_emit(buf[:cap], *args, row_off, row_base)
+    return buf
+
+
+@pytest.mark.parametrize("name", [*EDGE_SHAPES, "all_rows_invalid", "inert_J1"])
+def test_count_and_emit_at_block_edges(cuda, name):
+    """Count and emit equal their plain versions bit for bit: candidate
+    lists of one block pass, one more, three and a ragged tail; one row;
+    every row dead; a single inert constraint; 16 columns."""
+    args = edge_level(name, cuda)
+    counts = ops.embed_join_count(*args)
+    want = ref.embed_join_count_ref(*args)
+    torch.testing.assert_close(counts, want, rtol=0, atol=0)
+    row_off = want.cumsum(0) - want
+    total = int(want.sum())
+    if name == "all_rows_invalid":
+        assert total == 0
+    got = emit_guarded(args, row_off, 5, total + 9)
+    plain = torch.full_like(got, -7)
+    ref.embed_join_emit_ref(plain[:total + 9], *args, row_off, 5)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    assert bool((got[total:] == -7).all())
+
+
+def test_emit_drops_slots_past_a_short_buffer(cuda):
+    """An idx_map shorter than the total keeps the first survivors in slot
+    order; no slot at or past its end is written."""
+    args = random_level(1013, 5, 2100, 2200, 2, seed=11, device=cuda)
+    want = ref.embed_join_count_ref(*args)
+    row_off = want.cumsum(0) - want
+    cap = int(want.sum()) // 3
+    got = emit_guarded(args, row_off, 0, cap)
+    plain = torch.full_like(got, -7)
+    ref.embed_join_emit_ref(plain[:cap], *args, row_off, 0)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    assert bool((got[cap:] == -7).all())
+
+
+def test_emit_cell_ids_past_int32(cuda):
+    """A row_base that puts the cell ids past 2^31 (the reference's int32
+    ids wrap there, C1): the kernel's int64 ids equal the plain version's."""
+    args = random_level(700, 4, 1024, 1100, 2, seed=12, device=cuda)
+    want = ref.embed_join_count_ref(*args)
+    row_off = want.cumsum(0) - want
+    total = int(want.sum())
+    row_base = (1 << 31) // 1024 + 3
+    got = emit_guarded(args, row_off, row_base, total)
+    plain = torch.full_like(got, -7)
+    ref.embed_join_emit_ref(plain[:total], *args, row_off, row_base)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    assert int(got[:total].min()) >= 1 << 31
+
+
+@pytest.mark.parametrize("shape", [(4096, 2, 1024, 1100, 1), (40, 3, 3 * PASS + 77,
+                                                              3 * PASS + 177, 2)])
+def test_count_and_emit_are_deterministic(cuda, shape):
+    """A second call equals the first bit for bit (no atomics)."""
+    args = random_level(*shape, seed=sum(shape) + 1, device=cuda)
+    first = ops.embed_join_count(*args)
+    second = ops.embed_join_count(*args)
+    assert torch.equal(first, second)
+    row_off = first.cumsum(0) - first
+    total = int(first.sum())
+    a = emit_guarded(args, row_off, 1, total)
+    b = emit_guarded(args, row_off, 1, total)
+    assert torch.equal(a, b)
+
+
 def test_device_join_on_card_equals_cpu(cuda):
     g = random_labeled_graph(3000, 12000, 6, n_edge_labels=2, seed=5, device="cpu")
     q = random_walk_query(g, 5, sparse=True, seed=9, device="cpu")
