@@ -16,21 +16,26 @@ Phases:
               kernels at the shapes of real join levels (every level slice
               recorded from a HUMAN query and a join-heavy query, and
               ragged variants: a dead tail, one row, inert J 1, T 16,
-              three passes of candidates and a tail), the count and emit
-              kernels timed at the join-heavy level (also with the L2
+              three passes of candidates and a tail), the count, emit and
+              grid kernels timed at the join-heavy level (also with the L2
               flushed) and at the largest HUMAN level, beside the MB of
               32-byte sectors their lookups touch, the cost of building
               the reference's int8 elab[:, cand] view, their launch plan
-              and ptxas's registers; cni_encode and
+              (the grid kernel takes the count kernel's) and ptxas's
+              registers; cni_encode and
               candidate_filter (both modes) at the shapes of real ILGF
               rounds (the scale query's and a HUMAN query's first round, and
               a batched HUMAN round), plus ragged edges (saturated hubs,
               degree-0 rows, rows past d_max, a prime row count), and
               cni_update at the scale store's real frontier (the first
               batch of phase 9's stream: F rows x 200 labels) with that
-              batch's delta and with a zero delta, plus a ragged copy; the
-              update's digests must also equal cni_encode of its new rows
-              bit for bit.  Exact outputs must be equal, log digests within
+              batch's delta and with a zero delta, plus a ragged copy at
+              d_max 64 and at d_max 256 (positions in four windows), and at
+              the join-heavy store's first frontier (L 8, a row to 8
+              lanes); the update's digests must also equal cni_encode of
+              its new rows bit for bit; its launch plan at each shape and
+              ptxas's registers; timed at the scale and join-heavy batches
+              and the d_max 256 rows.  Exact outputs must be equal, log digests within
               1e-5 (cni_update's, whose values reach the hundreds: 1e-5 or
               two float32 ulps, as the GPU tests allow); each kernel's
               device time (CUDA-graph replay), its eager wrapper time, its
@@ -435,11 +440,11 @@ def phase_kernels(ops, ref, search, core, graphs, dev):
         for k, v in errs.items():
             max_err[k] = max(max_err[k], v)
 
-    ptxas_report(ops.library(), ("embed_join_count_kernel",
+    ptxas_report(ops.library(), ("embed_join_rows_kernel",
                                  "embed_join_emit_kernel"), {
         f"{tag} {kind}": join_plan(ops, lvl, kind)
         for tag, lvl in (("HUMAN", real_h), ("join", real_j))
-        for kind in ("count", "emit")})
+        for kind in ("count", "emit")})  # the grid kernel takes count's plan
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     timings = {}
     # the join-heavy level (the largest real level) gives the recorded
@@ -459,11 +464,10 @@ def phase_kernels(ops, ref, search, core, graphs, dev):
                                 lambda: ref.embed_join_emit_ref(idx, *args, row_off, 0),
                                 bound_of(args, out_bytes=8 * total,
                                          extra_in_bytes=8 * r)),
+            "embed_join_grid": (lambda: ops.embed_join(*args),
+                                lambda: ref.embed_join_grid_ref(*args),
+                                bound_of(args, out_bytes=r * c)),
         }
-        if tag == "join":
-            fns["embed_join_grid"] = (lambda: ops.embed_join(*args),
-                                      lambda: ref.embed_join_grid_ref(*args),
-                                      bound_of(args, out_bytes=r * c))
         sectors = sector_mb(args)
         shape = (f"R={r} C={c} T={table.shape[1]} J={args[5].shape[0]} "
                  f"survivors={total}; lookups touch {sectors:.3f} MB of "
@@ -473,7 +477,7 @@ def phase_kernels(ops, ref, search, core, graphs, dev):
             eager_ms = time_ms(kern, 200)
             plain_ms = time_ms(plain, 20)
             cold = ""
-            if tag == "join" and name != "embed_join_grid":
+            if tag == "join":
                 cold_ms = cold_device_ms(kern, flush)
                 cold = f", {cold_ms:.5f} ms with L2 flushed"
             if tag == "join":
@@ -495,7 +499,8 @@ def phase_kernels(ops, ref, search, core, graphs, dev):
 
 
 def join_plan(ops, args, kind):
-    """The count or emit kernel's launch at one level's shapes."""
+    """The count (and grid) or emit kernel's launch at one level's
+    shapes."""
     table, _, cand, *_, q_pos = args[:6]
     out = (ctypes.c_int * 5)()
     ops.library().lib.embed_join_plan(table.shape[0], cand.shape[0],
@@ -906,34 +911,83 @@ def ragged_update(rows, delta, d_max: int):
     return r, d
 
 
+def update_plan(upd_ops, rows):
+    """The cni_update kernel's launch at these rows' shape."""
+    out = (ctypes.c_int * 6)()
+    upd_ops.library().lib.cni_update_plan(rows.shape[0], rows.shape[1], out)
+    return dict(zip(("lanes_a_row", "rows_a_tile", "rows_a_block", "blocks",
+                     "threads", "smem"), out))
+
+
+def join_store(core, graphs, run=lambda fn: fn()):
+    """Phase 9's join-heavy store with its index, and its update batches;
+    ``run`` makes the seeding calls (phase 9 counts their launches)."""
+    g = graphs.random_labeled_graph(8000, 40000, 8, seed=42, device="cuda")
+    store = run(lambda: graphs.GraphStore.from_graph(g))
+    run(lambda: store.attach_index(core.IncrementalIndex()))
+    batches = graphs.random_update_batches(store, 8, 4096, delete_frac=0.35,
+                                           seed=1)
+    return g, store, batches
+
+
+def first_frontier(graphs, g, store, batches):
+    """The store's first real frontier: ``(rows, delta, d_max, max_p)`` of
+    its first batch.  A store without an index applies the batch first,
+    giving the records that apply."""
+    applied = graphs.GraphStore.from_graph(g).apply(batches[0]).applied
+    idx = store.index
+    _, rows, delta = idx.frontier_delta(applied)
+    return rows, delta, idx.d_max, idx.max_p
+
+
 def phase_update_kernel(main, upd_ops, upd_ref, enc_ops, core, graphs, scale):
     store, stream, _ = scale_store(main, core, graphs, scale)
     idx = store.index
     frontier, rows, delta = idx.frontier_delta(stream.batch(0))
-    log(f"[3 kernels] cni_update at the scale store's first batch: frontier "
-        f"{frontier.size} rows")
+    log(f"[3 kernels] cni_update at the scale store's first batch (frontier "
+        f"{frontier.size} rows) and the join-heavy store's")
     d_max, max_p = idx.d_max, idx.max_p
+    j_rows, j_delta, j_dmax, j_maxp = first_frontier(graphs,
+                                                     *join_store(core, graphs))
+    # d_max 256 over the ragged rows: hubs of 256 neighbours and rows past
+    # it take their positions in four windows of 64
+    wide = 256
+    cases = {
+        "scale_batch1": (rows, delta, d_max, max_p),
+        "scale_batch1_zero_delta": (rows, torch.zeros_like(delta), d_max,
+                                    max_p),
+        "scale_ragged": (*ragged_update(rows, delta, d_max), d_max, max_p),
+        "scale_ragged_d256": (*ragged_update(rows, delta, wide), wide,
+                              core.default_max_p(wide, rows.shape[1])),
+        "join_batch1": (j_rows, j_delta, j_dmax, j_maxp),
+    }
     err = 0.0
-    for name, (r, d) in (("scale_batch1", (rows, delta)),
-                         ("scale_batch1_zero_delta", (rows,
-                                                      torch.zeros_like(delta))),
-                         ("scale_ragged", ragged_update(rows, delta, d_max))):
-        err = max(err, check_update(upd_ops, upd_ref, enc_ops, name, r, d,
-                                    d_max, max_p))
-    bound_ms, bound_by = encode_bound(rows + delta, d_max, max_p,
-                                      extra_bytes=2 * rows.numel() * 4)
-    kern = functools.partial(upd_ops.cni_update, rows, delta, d_max, max_p)
-    plain = functools.partial(upd_ref.cni_update_ref, rows, delta, d_max, max_p)
-    ms = device_ms(kern)
-    eager_ms = time_ms(kern, 50)
-    plain_ms = time_ms(plain, 5)
-    log(f"  time cni_update: kernel {ms:.5f} ms on the device ({eager_ms:.5f} "
-        f"ms per eager wrapper call), plain {plain_ms:.5f} ms per eager call, "
-        f"bound {bound_ms:.5f} ms ({bound_by}) at F={rows.shape[0]} "
-        f"L={rows.shape[1]} d_max={d_max}")
-    return {"cni_update": err}, {"cni_update": {
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by}}
+    for name, (r, d, dm, mp) in cases.items():
+        err = max(err, check_update(upd_ops, upd_ref, enc_ops, name, r, d, dm,
+                                    mp, need_live=name == "join_batch1"))
+    plans = {name: update_plan(upd_ops, case[0]) for name, case in cases.items()}
+    for name, plan in plans.items():
+        log(f"  cni_update launch {name}: {plan}")
+    ptxas_report(upd_ops.library(), ("cni_update_kernel",),
+                 {name: plan["smem"] for name, plan in plans.items()})
+    timings = {}
+    for name in ("scale_batch1", "join_batch1", "scale_ragged_d256"):
+        r, d, dm, mp = cases[name]
+        bound_ms, bound_by = encode_bound(r + d, dm, mp,
+                                          extra_bytes=2 * r.numel() * 4)
+        kern = functools.partial(upd_ops.cni_update, r, d, dm, mp)
+        plain = functools.partial(upd_ref.cni_update_ref, r, d, dm, mp)
+        ms = device_ms(kern)
+        eager_ms = time_ms(kern, 50)
+        plain_ms = time_ms(plain, 5)
+        timings[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+        log(f"  time cni_update ({name}): kernel {ms:.5f} ms on the device "
+            f"({eager_ms:.5f} ms per eager wrapper call), plain {plain_ms:.5f} "
+            f"ms per eager call, bound {bound_ms:.5f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of bound, at F={r.shape[0]} L={r.shape[1]} "
+            f"d_max={dm}")
+    return {"cni_update": err}, {"cni_update": timings["scale_batch1"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1290,26 +1344,20 @@ def profile_prefilter(core, store, q):
 def check_first_update(upd_ops, upd_ref, enc_ops, graphs, g, store, batches):
     """``cni_update`` against its plain version on the join-heavy store's
     first real frontier, where rows are unsaturated and digests real (the
-    scale store's frontier rows are nearly all saturated).  A store without
-    an index applies the batch first, giving the records that apply."""
-    applied = graphs.GraphStore.from_graph(g).apply(batches[0]).applied
-    idx = store.index
-    _, rows, delta = idx.frontier_delta(applied)
+    scale store's frontier rows are nearly all saturated)."""
+    rows, delta, d_max, max_p = first_frontier(graphs, g, store, batches)
     return check_update(upd_ops, upd_ref, enc_ops, "join_batch1", rows, delta,
-                        idx.d_max, idx.max_p, need_live=True)
+                        d_max, max_p, need_live=True)
 
 
 def phase_store(main, core, graphs, scale: float, upd_ops, upd_ref, enc_ops):
     """Returns the largest log-digest error of the join-heavy store's
     ``cni_update`` check."""
     torch.cuda.reset_peak_memory_stats()
-    g = graphs.random_labeled_graph(8000, 40000, 8, seed=42, device="cuda")
+    g, store, batches = join_store(core, graphs,
+                                   lambda fn: main.run("store_seed", fn))
     log(f"[9 store] join-heavy store: {g.n_vertices} V / {g.n_edges} E, 8 "
         f"batches of 4,096 records at 35 % deletes")
-    store = main.run("store_seed", lambda: graphs.GraphStore.from_graph(g))
-    main.run("store_seed", lambda: store.attach_index(core.IncrementalIndex()))
-    batches = graphs.random_update_batches(store, 8, 4096, delete_frac=0.35,
-                                           seed=1)
     err = check_first_update(upd_ops, upd_ref, enc_ops, graphs, g, store,
                              batches)
     run_stream(main, store, batches, "join")

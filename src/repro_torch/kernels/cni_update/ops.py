@@ -15,6 +15,7 @@ and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -27,7 +28,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "cni_update.cu"
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "cni_update": [_P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "cni_update": [_P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "cni_update_plan": [_L, _I, _P],
 }
 
 
@@ -39,6 +41,19 @@ def library() -> _build.BuiltLibrary:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return built
+
+
+@functools.lru_cache(maxsize=8)
+def term_table(d_max: int, max_p: int, device: torch.device) -> torch.Tensor:
+    """The kernel's table: for each flat term index of ``core/cni.py``'s
+    (d_max + 1, max_p + 1) tables, 16 bytes (int32 x 4): the Pascal term's
+    low and high halves, the bits of the float32 log term, and 0, so one
+    16-byte load a position fetches both terms."""
+    pascal = cni_mod._pascal_table(d_max, max_p, device).reshape(-1)
+    log_t = cni_mod._log_hbar(d_max, max_p, device).reshape(-1)
+    halves = pascal.view(torch.int32).view(-1, 2)  # little-endian: low first
+    return torch.stack([halves[:, 0], halves[:, 1], log_t.view(torch.int32),
+                        torch.zeros_like(halves[:, 0])], 1).contiguous()
 
 
 def cni_update(rows: torch.Tensor, delta: torch.Tensor, d_max: int, max_p: int):
@@ -71,11 +86,10 @@ def _launch(rows: torch.Tensor, delta: torch.Tensor, d_max: int, max_p: int):
     cni = torch.empty(n, dtype=torch.int64, device=dev)
     cni_log = torch.empty(n, dtype=torch.float32, device=dev)
     if n:
-        pascal = cni_mod._pascal_table(d_max, max_p, dev)
-        log_t = cni_mod._log_hbar(d_max, max_p, dev)
+        terms = term_table(d_max, max_p, dev)
         rc = library().lib.cni_update(
             rows.data_ptr(), delta.data_ptr(), n, n_labels, d_max, max_p,
-            pascal.data_ptr(), log_t.data_ptr(), new_rows.data_ptr(),
+            terms.data_ptr(), new_rows.data_ptr(),
             deg.data_ptr(), cni.data_ptr(), cni_log.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )

@@ -14,7 +14,7 @@
 // gather.  Padded rows and candidates hold vertex id 0, a real vertex, so
 // they are masked by row_valid / cand_valid and never by value.
 //
-// embed_join_count_kernel<K, G>
+// embed_join_rows_kernel<K, G, false>: the count kernel
 //   Replaces: embed_join_count_pallas / _embed_join_count_kernel
 //             (src/repro/kernels/embed_join/kernel.py:174 and :103).
 //   Bound:    bytes.  Per level it must read the table (R*T*4), the
@@ -46,14 +46,17 @@
 //             in warp order and makes one store per row.  The (R, C) grid
 //             never reaches device memory.
 //
-// embed_join_grid_kernel
+// embed_join_rows_kernel<K, G, true>: the grid kernel
 //   Replaces: embed_join_pallas / _embed_join_kernel
 //             (src/repro/kernels/embed_join/kernel.py:129 and :88).
 //   Bound:    bytes: the same reads as the count kernel plus the R*C byte
 //             grid written once.
-//   Design:   one thread per cell over a grid-stride loop; neighbouring
-//             threads take neighbouring candidates of one row, so the grid
-//             write and the cand[] read coalesce.
+//   Design:   the count kernel itself, with its plan, staging, candidates
+//             in registers and G x K lookups in flight; where the count
+//             kernel sums a ballot, each lane writes its validity byte of
+//             each of its K candidates (32 apart, so a warp's 32 bytes of
+//             one k coalesce).  A row group with no valid row writes its
+//             zeros without a lookup.
 //
 // embed_join_emit_kernel<K, G>
 //   Replaces: the emit pass embed_join_emit_raw
@@ -95,7 +98,6 @@ constexpr int kMaxRows = 16;   // rows per block
 constexpr int kRowGroup = 2;   // rows whose lookups are in flight together
 constexpr int kMaxWindow = 2;  // emit: passes of ballots held at once
 constexpr int kSMs = 132;
-constexpr int kGridThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct JoinArgs {
@@ -295,10 +297,13 @@ __device__ __forceinline__ bool group_rows(const RowSmem& s, int g0, int nrows,
   return any;
 }
 
-template <int K, int G>
+// The count kernel (kGrid false: counts[r], the survivors of row r) and the
+// grid kernel (kGrid true: grid[r * C + c], one byte a cell).
+template <int K, int G, bool kGrid>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
-    embed_join_count_kernel(JoinArgs a, int rows_per_block,
-                            int* __restrict__ counts) {
+    embed_join_rows_kernel(JoinArgs a, int rows_per_block,
+                           int* __restrict__ counts,
+                           unsigned char* __restrict__ grid) {
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int warps = blockDim.x / kWarp;
@@ -314,29 +319,50 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
   const int jv = stage_rows(a, s, r0, nrows);
   for (int g0 = 0; g0 < nrows; g0 += G) {
     bool rlive[G];
-    if (!group_rows<G>(s, g0, nrows, rlive)) continue;  // block-uniform
+    const bool any = group_rows<G>(s, g0, nrows, rlive);
+    if (!any && !kGrid) continue;  // block-uniform
     int cnt[G];
 #pragma unroll
     for (int i = 0; i < G; ++i) cnt[i] = 0;
     for (int p = 0; p < passes; ++p) {
-      if (passes > 1) {
-        load_cands<K>(a, p * per_pass + warp * kWarp * K, lane, v, live);
-      }
+      const int c0 = p * per_pass + warp * kWarp * K;
+      if (passes > 1) load_cands<K>(a, c0, lane, v, live);
       unsigned bal[G][K];
-      test_group<K, G>(a, s, g0, rlive, jv, v, live, bal);
+      if (any) {
+        test_group<K, G>(a, s, g0, rlive, jv, v, live, bal);
+      } else {
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) bal[i][k] = 0u;
+        }
+      }
 #pragma unroll
       for (int i = 0; i < G; ++i) {
+        if (kGrid) {
+          if (g0 + i >= nrows) continue;
+          unsigned char* out =
+              grid + static_cast<long long>(r0 + g0 + i) * a.C + c0 + lane;
 #pragma unroll
-        for (int k = 0; k < K; ++k) cnt[i] += __popc(bal[i][k]);
+          for (int k = 0; k < K; ++k) {
+            if (c0 + k * kWarp + lane < a.C) {
+              out[k * kWarp] = static_cast<unsigned char>((bal[i][k] >> lane) & 1u);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < K; ++k) cnt[i] += __popc(bal[i][k]);
+        }
       }
     }
-    if (lane == 0) {
+    if (!kGrid && lane == 0) {
 #pragma unroll
       for (int i = 0; i < G; ++i) {
         if (g0 + i < nrows) s.red[(g0 + i) * warps + warp] = cnt[i];
       }
     }
   }
+  if (kGrid) return;  // block-uniform: no barrier is left to meet
   __syncthreads();
   for (int rr = threadIdx.x; rr < nrows; rr += blockDim.x) {
     int sum = 0;
@@ -449,33 +475,6 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
   }
 }
 
-__global__ void embed_join_grid_kernel(JoinArgs a,
-                                       unsigned char* __restrict__ out) {
-  const long long cells = static_cast<long long>(a.R) * a.C;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < cells; i += stride) {
-    const int r = static_cast<int>(i / a.C);
-    const int c = static_cast<int>(i - static_cast<long long>(r) * a.C);
-    bool ok = a.row_valid[r] && a.cand_valid[c];
-    if (ok) {
-      const int* row = a.table + static_cast<long long>(r) * a.T;
-      const int v = a.cand[c];
-      for (int j = 0; ok && j < a.J; ++j) {
-        if (a.q_valid[j] &&
-            __ldg(a.elab + static_cast<long long>(row[a.q_pos[j]]) * a.N + v) !=
-                a.q_lab[j]) {
-          ok = false;
-        }
-      }
-      for (int t = 0; ok && t < a.T; ++t) {
-        if (row[t] == v) ok = false;
-      }
-    }
-    out[i] = ok ? 1 : 0;
-  }
-}
-
 JoinArgs make_args(const void* table, int R, int T, const void* row_valid,
                    const void* cand, int C, const void* cand_valid,
                    const void* elab, int N, const void* q_pos,
@@ -497,18 +496,18 @@ JoinArgs make_args(const void* table, int R, int T, const void* row_valid,
   return a;
 }
 
-using CountKernel = void (*)(JoinArgs, int, int*);
+using RowsKernel = void (*)(JoinArgs, int, int*, unsigned char*);
 using EmitKernel = void (*)(JoinArgs, int, int, const long long*, long long,
                             long long*, long long);
 
 // The instantiations for a plan's K and row group G (nullptr for another K).
-template <int G>
-CountKernel count_kernel(int k) {
+template <int G, bool kGrid>
+RowsKernel rows_kernel(int k) {
   switch (k) {
-    case 1: return embed_join_count_kernel<1, G>;
-    case 2: return embed_join_count_kernel<2, G>;
-    case 4: return embed_join_count_kernel<4, G>;
-    case 8: return embed_join_count_kernel<8, G>;
+    case 1: return embed_join_rows_kernel<1, G, kGrid>;
+    case 2: return embed_join_rows_kernel<2, G, kGrid>;
+    case 4: return embed_join_rows_kernel<4, G, kGrid>;
+    case 8: return embed_join_rows_kernel<8, G, kGrid>;
   }
   return nullptr;
 }
@@ -524,13 +523,20 @@ EmitKernel emit_kernel(int k) {
   return nullptr;
 }
 
-int launch_count(const JoinArgs& a, const Plan& p, void* counts,
-                 void* stream) {
-  const CountKernel kernel = p.group > 1 ? count_kernel<kRowGroup>(p.k)
-                                         : count_kernel<1>(p.k);
+// The count kernel (grid null) or the grid kernel (counts null).
+int launch_rows(const JoinArgs& a, const Plan& p, void* counts, void* grid,
+                void* stream) {
+  RowsKernel kernel;
+  if (grid != nullptr) {
+    kernel = p.group > 1 ? rows_kernel<kRowGroup, true>(p.k)
+                         : rows_kernel<1, true>(p.k);
+  } else {
+    kernel = p.group > 1 ? rows_kernel<kRowGroup, false>(p.k)
+                         : rows_kernel<1, false>(p.k);
+  }
   kernel<<<p.blocks, p.warps * kWarp, p.smem,
-           static_cast<cudaStream_t>(stream)>>>(a, p.rows,
-                                                static_cast<int*>(counts));
+           static_cast<cudaStream_t>(stream)>>>(
+      a, p.rows, static_cast<int*>(counts), static_cast<unsigned char*>(grid));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -557,7 +563,8 @@ int embed_join_count(const void* table, int R, int T, const void* row_valid,
                      void* counts, void* stream) {
   const JoinArgs a = make_args(table, R, T, row_valid, cand, C, cand_valid,
                                elab, N, q_pos, q_lab, q_valid, J);
-  return launch_count(a, plan_rows(R, C, T, J, false), counts, stream);
+  return launch_rows(a, plan_rows(R, C, T, J, false), counts, nullptr,
+                     stream);
 }
 
 int embed_join_emit(const void* table, int R, int T, const void* row_valid,
@@ -579,17 +586,12 @@ int embed_join_grid(const void* table, int R, int T, const void* row_valid,
                     void* stream) {
   const JoinArgs a = make_args(table, R, T, row_valid, cand, C, cand_valid,
                                elab, N, q_pos, q_lab, q_valid, J);
-  const long long cells = static_cast<long long>(R) * C;
-  long long blocks = (cells + kGridThreads - 1) / kGridThreads;
-  if (blocks > 132LL * 32) blocks = 132LL * 32;  // grid-stride beyond this
-  embed_join_grid_kernel<<<static_cast<int>(blocks), kGridThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<unsigned char*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows(a, plan_rows(R, C, T, J, false), nullptr, out, stream);
 }
 
-// The count (emit = 0) or emit (emit = 1) kernel's launch at these shapes:
-// out = {blocks, threads a block, K, rows a block, dynamic shared bytes}.
+// The count and grid (emit = 0) or emit (emit = 1) kernel's launch at these
+// shapes: out = {blocks, threads a block, K, rows a block, dynamic shared
+// bytes}.
 int embed_join_plan(int R, int C, int T, int J, int emit, int* out) {
   const Plan p = plan_rows(R, C, T, J, emit != 0);
   out[0] = p.blocks;

@@ -146,6 +146,26 @@ def test_count_and_emit_at_block_edges(cuda, name):
     assert bool((got[total:] == -7).all())
 
 
+GRID_EDGES = [*EDGE_SHAPES, "all_rows_invalid", "inert_J1"]
+
+
+@pytest.mark.parametrize("name", GRID_EDGES)
+def test_grid_equals_plain_version_at_block_edges(cuda, name):
+    """The grid kernel (the count kernel's row blocks, a byte a cell) equals
+    its plain version bit for bit at ragged (R, C): candidate lists of one
+    block pass, one more, three and a tail; one row; every row dead; a
+    single inert constraint; 16 columns.  One launch a call."""
+    args = edge_level(name, cuda)
+    before = ops.embed_join.launches
+    grid = ops.embed_join(*args)
+    assert ops.embed_join.launches == before + 1
+    want = ref.embed_join_grid_ref(*args)
+    assert grid.dtype == torch.bool and grid.shape == want.shape
+    torch.testing.assert_close(grid, want, rtol=0, atol=0)
+    if name == "all_rows_invalid":
+        assert not bool(grid.any())
+
+
 def test_emit_drops_slots_past_a_short_buffer(cuda):
     """An idx_map shorter than the total keeps the first survivors in slot
     order; no slot at or past its end is written."""
@@ -336,8 +356,21 @@ def test_batch_engine_on_card_equals_cpu(cuda, variant):
         assert s_gpu.candidate_pairs == s_cpu.candidate_pairs
 
 
+# cni_update at its launch plan's edges, after the encode cases: L 8 (a
+# row to 8 lanes, 4 rows a warp) and 16; d_max 128-300 (positions taken 64
+# at a time, the sum in a second pass); one label spanning windows; F not a
+# multiple of the rows a tile (10 at L 200) or a block; a row filling a
+# warp's 2048-int shared-memory tile alone; rows longer than a tile (a warp
+# a row, not staged), one and several windows
+UPDATE_CASES = ENCODE_CASES + [
+    (4099, 8, 64, 100, 10), (5003, 16, 256, 30, 7), (2053, 44, 128, 50, 9),
+    (3001, 1, 128, 10, 5), (100003, 200, 64, 2000, 50), (97, 1500, 64, 5, 3),
+    (89, 2100, 64, 5, 3), (61, 3000, 300, 4, 3),
+]
+
+
 @pytest.mark.parametrize("real", [False, True], ids=["zero_delta", "real_delta"])
-@pytest.mark.parametrize("case", ENCODE_CASES)
+@pytest.mark.parametrize("case", UPDATE_CASES)
 def test_cni_update_equals_plain_version_and_encode(cuda, case, real):
     n, n_labels, d_max, hubs, over = case
     rng = np.random.default_rng(n + 1)
