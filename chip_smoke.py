@@ -4,6 +4,7 @@
     python3 chip_smoke.py                     # every phase, one card
     python3 chip_smoke.py --phases 1,2,3      # device, build, kernel checks
     python3 chip_smoke.py --phases 1,2,3,10   # ... and the LM serving path
+    python3 chip_smoke.py --phases 1,2,11     # the graph-query service
 
 Phases:
 
@@ -93,11 +94,15 @@ Phases:
               cni_update on phase 9's apply path, the filter and join
               kernels on its store-backed query and batch paths, and
               flash_attention on phase 10's granite-3-2b and wkv6 on its
-              rwkv6-7b ``run_to_completion``.
+              rwkv6-7b ``run_to_completion``; on phase 11 the filter and
+              join kernels on the services' ``submit``/``tick``/
+              ``run_to_completion`` and the replicas' calls, cni_update on
+              the services' ``add_edges``/``remove_edges``, and no
+              cni_encode in ``GraphQueryService.restore``.
 9. store    — ``GraphStore`` + ``IncrementalIndex`` on the card: the
               join-heavy graph with ``random_update_batches(.., 8, 4096,
               delete_frac=0.35, seed=1)``, and the scale graph seeded as a
-              store (d_max 64, max_p 4096) taking 16 batches of 65,536
+              store (d_max 64, max_p 4096) taking 8 batches of 65,536
               records at 35 % deletes (deletes drawn from alive edges,
               inserts uniform non-edges; drawn here, vectorised, each
               against the store as it stands).  Before the join-heavy
@@ -106,7 +111,7 @@ Phases:
               real delta, a digest neither 0 nor SAT64; the scale
               frontier's rows are saturated).  Per batch the apply time,
               split into the host edge table and the index's maintenance;
-              a 17th batch, outside the measured stream, under
+              a 9th batch, outside the measured stream, under
               torch.profiler.
               After the stream the index must equal a scratch rebuild bit
               for bit (counts, degrees, exact and log digests); the
@@ -138,6 +143,35 @@ Phases:
               teacher-forced logits move when only the WKV's output sum is
               reordered (why its kernel matches its plain version bit for
               bit).
+11. service — ``GraphQueryService`` on the card over phase 9's two stores
+              (built here when phase 9 did not run), each store's degree
+              cap set to its index's table bound.  Join-heavy:
+              ``GraphServiceConfig(max_slots=8, max_query_vertices=8,
+              max_query_labels=8, enumerator="device", plan_queries=True,
+              max_queue_depth=16, tenant_quota=12, checkpoint_dir=<a
+              temporary directory>, checkpoint_every=1)``; 64 requests of
+              phase 5's shapes in waves of 16 between ticks, two tenants,
+              priorities 0 and 1, a deadline on a quarter; after each
+              wave's first tick a batch of 512 records at 35 % deletes
+              through ``remove_edges`` and ``add_edges``.  Admitted,
+              rejected and expired must add up to offered, the counters
+              agree with the outcomes, a tick dispatches two pinned epochs,
+              and every result equals the store-backed engine on its pinned
+              snapshot and the DFS oracle (searched in host processes while
+              the scale service runs).  Then ``shutdown``,
+              ``GraphQueryService.restore`` on the card (same epoch, index
+              bit for bit, no cni_encode; the final epoch's 8 queries
+              answered as before) and ``ReplicatedGraphService`` (3
+              replicas, 16 queries, one batch through the writer, each
+              result equal to one service's).  Scale: ``GraphServiceConfig()``
+              with ``enumerator="device"``, ``plan_queries=True`` over the
+              scale store; 4 dense 10-vertex queries, a tick, one 65,536-
+              record batch at 35 % deletes through the service, 4 more, and
+              ticks to the end; each result equal to the engine on its pinned
+              snapshot; per tick the wall time split into admission (host
+              ords and query digest, ``store_prefilter``, epoch pin and host
+              copy), rounds and finalize (compaction, enumeration, plan);
+              queries/s, peak device memory, one tick under torch.profiler.
 
 Any failure propagates: the script exits non-zero and prints no result.
 The last line of a passing run is
@@ -769,8 +803,9 @@ def phase_filter_kernels(enc_ops, enc_ref, cf_ops, cf_ref, core, graphs, scale):
 # from its first batch; phase 9 applies the stream)
 # ---------------------------------------------------------------------------
 
-# the scale store's stream: 16 batches of 65,536 records at 35 % deletes
-STREAM_BATCHES = 16
+# the scale store's stream: 8 batches of 65,536 records at 35 % deletes (16
+# before phase 11 joined the run; 8 keep the whole run near half its limit)
+STREAM_BATCHES = 8
 STREAM_RECORDS = 65_536
 DELETE_FRAC = 0.35
 
@@ -995,13 +1030,32 @@ def phase_update_kernel(main, upd_ops, upd_ref, enc_ops, core, graphs, scale):
 # ---------------------------------------------------------------------------
 
 
-def oracle(core, graphs, engine, q):
-    """DFS oracle on the filtered graph (as examples/quickstart.py checks)."""
+def oracle_inputs(core, graphs, engine, q):
+    """The DFS oracle's host inputs: the filtered graph, the query, its
+    candidate columns there, and the filtered graph's original ids."""
     res = core.ilgf(engine.data, q)
     alive = res.alive.cpu().numpy()
     sub, old_ids = graphs.induced_subgraph(engine.data, alive)
-    emb = core.host_dfs_search(sub, q, res.candidates.cpu().numpy()[alive])
+    return sub, graphs.to_host(q), res.candidates.cpu().numpy()[alive], old_ids
+
+
+def oracle(core, graphs, engine, q):
+    """DFS oracle on the filtered graph (as examples/quickstart.py checks)."""
+    sub, q_host, cand, old_ids = oracle_inputs(core, graphs, engine, q)
+    emb = core.host_dfs_search(sub, q_host, cand)
     return old_ids[emb] if emb.size else emb
+
+
+def oracle_pool(workers: int = 4):
+    """Host processes for the DFS oracle, which is Python, one core a
+    search; spawned, so no worker inherits the card.  A context manager:
+    its exit joins every worker."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(max(1, min(workers, (os.cpu_count() or 2) - 1)),
+                               mp_context=multiprocessing.get_context("spawn"))
 
 
 def run_queries(main, core, graphs, g, queries, tag):
@@ -1350,12 +1404,15 @@ def check_first_update(upd_ops, upd_ref, enc_ops, graphs, g, store, batches):
                         d_max, max_p, need_live=True)
 
 
-def phase_store(main, core, graphs, scale: float, upd_ops, upd_ref, enc_ops):
+def phase_store(main, core, graphs, scale: float, upd_ops, upd_ref, enc_ops,
+                stores: dict):
     """Returns the largest log-digest error of the join-heavy store's
-    ``cni_update`` check."""
+    ``cni_update`` check; ``stores["join"]`` takes the join-heavy graph and
+    store for phase 11."""
     torch.cuda.reset_peak_memory_stats()
     g, store, batches = join_store(core, graphs,
                                    lambda fn: main.run("store_seed", fn))
+    stores["join"] = (g, store)
     log(f"[9 store] join-heavy store: {g.n_vertices} V / {g.n_edges} E, 8 "
         f"batches of 4,096 records at 35 % deletes")
     err = check_first_update(upd_ops, upd_ref, enc_ops, graphs, g, store,
@@ -1387,6 +1444,437 @@ def phase_store(main, core, graphs, scale: float, upd_ops, upd_ref, enc_ops):
     log(f"  phase 9 peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     return err
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the graph-query service over phase 9's stores
+# ---------------------------------------------------------------------------
+
+# the join-heavy service's traffic: waves of requests between ticks, and a
+# mutation batch after each wave's first tick
+SERVICE_WAVES = 4
+SERVICE_WAVE = 16
+SERVICE_RECORDS = 512
+# the scale service: dense 10-vertex queries before and after its batch
+SCALE_SERVICE_QUERIES = 4
+INDEX_STATE = ("counts", "deg", "cni", "cni_log")
+
+
+def split_batch(batch):
+    """A drawn batch as the service's two calls: its deletes, its inserts."""
+    edges = np.stack([batch.src, batch.dst], axis=1)
+    return edges[~batch.insert], edges[batch.insert]
+
+
+def service_cap(store):
+    """The service's static degree bound is the index's table bound: the
+    store takes it as its degree cap (a cap at today's maximum degree
+    would refuse the traffic's first batch that grows a hub)."""
+    if store.degree_cap is None:
+        store.degree_cap = store.index.d_max
+    return store.degree_cap
+
+
+def check_served(core, graphs, done, queries, pinned, tag, pool=None):
+    """Every result equals the store-backed engine (same enumerator) on its
+    pinned snapshot as a set of rows.  With ``pool`` each result's DFS
+    oracle is submitted there too; returns ``(results per epoch,
+    pending)``, whose oracles ``check_oracles`` collects."""
+    engines, per_epoch, pending = {}, {}, []
+    for rid, emb, st in done:
+        epoch = st.extras["service"]["epoch"]
+        if epoch not in engines:
+            engines[epoch] = core.SubgraphQueryEngine(pinned[epoch],
+                                                      enumerator="device")
+        q = queries[rid]
+        want, _ = engines[epoch].query(q)
+        if emb.shape[1] != q.n_vertices or emb_set(emb) != emb_set(want):
+            raise AssertionError(f"{tag} request {rid} (epoch {epoch}): "
+                                 f"service != engine on the pinned snapshot")
+        if pool is not None:
+            sub, q_host, cand, old_ids = oracle_inputs(core, graphs,
+                                                       engines[epoch], q)
+            pending.append((f"{tag} request {rid}", emb, old_ids,
+                            pool.submit(core.host_dfs_search, sub, q_host,
+                                        cand)))
+        per_epoch[epoch] = per_epoch.get(epoch, 0) + 1
+    return per_epoch, pending
+
+
+def check_oracles(pending):
+    """Each pending result against its DFS oracle's embeddings."""
+    for name, emb, old_ids, future in pending:
+        truth = future.result()
+        if emb_set(emb) != emb_set(old_ids[truth] if truth.size else truth):
+            raise AssertionError(f"{name}: service != DFS oracle")
+
+
+def service_join(main, core, graphs, serve, g, store, directory, pool):
+    """The join-heavy service: traffic, accounting, results, a restore,
+    and replicas; raises on any disagreement.  Returns the results' DFS
+    oracles, pending in ``pool``."""
+    cap = service_cap(store)
+    cfg = serve.GraphServiceConfig(
+        max_slots=8, max_query_vertices=8, max_query_labels=8,
+        enumerator="device", plan_queries=True, max_queue_depth=16,
+        tenant_quota=12, checkpoint_dir=directory, checkpoint_every=1)
+    svc = serve.GraphQueryService(store, cfg)
+    epoch0 = store.epoch
+    log(f"[11 service] join-heavy store at epoch {epoch0} ({store.n_edges} "
+        f"edges, degree cap {cap}): {SERVICE_WAVES} waves of {SERVICE_WAVE} "
+        f"requests, {SERVICE_WAVES} batches of {SERVICE_RECORDS} records at "
+        f"{DELETE_FRAC:.0%} deletes, snapshots every epoch")
+    pinned = {store.epoch: store.pin()}
+    rng = np.random.default_rng(7)
+    rounds = svc.metrics.counter("repro_service_rounds_total")
+    queries, done, offered, groups = {}, [], 0, []
+
+    def tick():
+        before = rounds.value()
+        done.extend(main.run("service", svc.tick))
+        groups.append(int(rounds.value() - before))
+
+    t0 = time.perf_counter()
+    for wave in range(SERVICE_WAVES):
+        graph = pinned[store.epoch].graph
+        for i in range(SERVICE_WAVE):
+            k = wave * SERVICE_WAVE + i
+            q = graphs.random_walk_query(graph, 4 + k % 3, sparse=True,
+                                         seed=2000 + k, device="cuda")
+            deadline = (0.05, 0.5, 5.0)[k // 4 % 3] if k % 4 == 3 else None
+            try:
+                rid = main.run("service", lambda: svc.submit(
+                    q, tenant=f"tenant{k % 2}", priority=k % 2,
+                    deadline_seconds=deadline))
+            except serve.AdmissionRejected as err:
+                rid = err.rid
+            queries[rid] = q
+            offered += 1
+        tick()
+        gone, new = split_batch(draw_update_batch(
+            graphs, store, rng, SERVICE_RECORDS, DELETE_FRAC))
+        main.run("service_mutate", lambda: svc.remove_edges(gone))
+        pinned[store.epoch] = store.pin()
+        main.run("service_mutate", lambda: svc.add_edges(new))
+        pinned[store.epoch] = store.pin()
+        tick()
+    done.extend(main.run("service", svc.run_to_completion))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    m = svc.metrics_snapshot()
+    admitted = int(m["repro_service_admitted_total"]["series"][()])
+    status = m["repro_service_requests_total"]["series"]
+    n_rej, n_exp = len(svc.rejections), len(svc.expired)
+    reasons = {r: sum(x.reason == r for x in svc.rejections)
+               for r in ("queue_full", "tenant_quota")}
+    log(f"  {offered} offered: {admitted} admitted, {n_rej} rejected "
+        f"{reasons}, {n_exp} expired; {len(done)} completed in {wall:.3f} s "
+        f"over {len(groups)} ticks and the drain, dispatches a tick "
+        f"{groups}; epochs {epoch0}-{store.epoch}, snapshots "
+        f"{int(m['repro_service_checkpoints_total']['series'][()])}")
+    if admitted + n_rej + n_exp != offered or len(done) != admitted:
+        raise AssertionError("admitted + rejected + expired != offered, or "
+                             "an admitted request never completed")
+    if (status.get((("status", "completed"),)) != len(done)
+            or status.get((("status", "expired"),), 0) != n_exp
+            or sum(m["repro_service_rejected_total"]["series"].values()) != n_rej
+            or m["repro_service_checkpoints_total"]["series"][()]
+            != 1 + store.epoch - epoch0):
+        raise AssertionError(f"service counters disagree with the outcomes: "
+                             f"{ {k: m[k]['series'] for k in m if 'service' in k and m[k]['type'] == 'counter'} }")
+    serve_obsv_check(svc)
+    if max(groups) < 2:
+        raise AssertionError("no tick dispatched two pinned epochs")
+    t1 = time.perf_counter()
+    per_epoch, pending = check_served(core, graphs, done, queries, pinned,
+                                      "join", pool)
+    log(f"  every result equals the engine on its pinned snapshot "
+        f"({time.perf_counter() - t1:.1f} s of checks; their DFS oracles run "
+        f"in host processes meanwhile); results per epoch {per_epoch}; "
+        f"{sum(e.shape[0] for _, e, _ in done)} embeddings")
+
+    # the final epoch's answers, then shutdown and a warm restore on the card
+    final = [graphs.random_walk_query(pinned[store.epoch].graph, 4 + i % 3,
+                                      sparse=True, seed=3000 + i,
+                                      device="cuda") for i in range(8)]
+    for q in final:
+        main.run("service", lambda q=q: svc.submit(q))
+    before = main.run("service", svc.run_to_completion)
+    main.run("service", svc.shutdown)
+    svc.wait_for_checkpoints()
+    state = {name: getattr(store.index, name).clone() for name in INDEX_STATE}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    restored = main.run("restore", lambda: serve.GraphQueryService.restore(
+        directory, cfg, device="cuda"))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    idx = restored.store.index
+    same = {n: torch.equal(getattr(idx, n), state[n]) for n in INDEX_STATE}
+    encodes = main.counts[(11, "restore")]["cni_encode"]
+    log(f"  restore at epoch {restored.store.epoch} (shut down at "
+        f"{store.epoch}) in {restore_s:.3f} s: bit for bit {same}, "
+        f"cni_encode launches {encodes}")
+    if restored.store.epoch != store.epoch or not all(same) or encodes:
+        raise AssertionError("the warm restore differs from the state at "
+                             "shutdown, or rebuilt its index")
+    for q in final:
+        main.run("service", lambda q=q: restored.submit(q))
+    after = main.run("service", restored.run_to_completion)
+    exact = 0
+    for (_, a, sa), (_, b, sb) in zip(before, after):
+        if emb_set(a) != emb_set(b) or a.shape != b.shape:
+            raise AssertionError("the restored service answers differently")
+        if sa.extras["plan"]["order"] == sb.extras["plan"]["order"]:
+            if not np.array_equal(a, b):
+                raise AssertionError("same plan, different rows after restore")
+            exact += 1
+    log(f"  the restored service answers the final epoch's 8 queries as the "
+        f"original did ({exact} with the same plan, equal row for row)")
+    for snap in pinned.values():
+        store.release(snap.epoch)
+
+    service_replicas(main, core, graphs, serve, restored.store,
+                     dataclasses.replace(cfg, checkpoint_dir=None,
+                                         max_queue_depth=None,
+                                         tenant_quota=None), rng)
+    restored.shutdown()
+    return pending
+
+
+def serve_obsv_check(svc):
+    """The metrics text parses as Prometheus exposition (the port's checker)."""
+    from repro_torch import obsv
+
+    fams = obsv.parse_prometheus(svc.metrics_text())
+    if "repro_service_requests_total" not in fams:
+        raise AssertionError("service metrics text lacks its families")
+
+
+def service_replicas(main, core, graphs, serve, store, cfg, rng):
+    """Three replicas over the restored store: 16 queries and one batch
+    (two mutations) through the writer; every rid comes back, each result
+    equal to one service's on its pinned snapshot."""
+    router = serve.ReplicatedGraphService(store, cfg, n_replicas=3)
+    pinned = {store.epoch: store.pin()}
+    qs = [graphs.random_walk_query(pinned[store.epoch].graph, 4 + i % 3,
+                                   sparse=True, seed=4000 + i, device="cuda")
+          for i in range(16)]
+    queries = {}
+    for q in qs[:8]:
+        queries[main.run("replicas", lambda q=q: router.submit(q))] = q
+    done = main.run("replicas", router.tick)
+    gone, new = split_batch(draw_update_batch(graphs, store, rng,
+                                              SERVICE_RECORDS, DELETE_FRAC))
+    main.run("replicas", lambda: router.remove_edges(gone))
+    main.run("replicas", lambda: router.add_edges(new))
+    pinned[store.epoch] = store.pin()
+    for q in qs[8:]:
+        queries[main.run("replicas", lambda q=q: router.submit(q))] = q
+    done += main.run("replicas", router.run_to_completion)
+    if sorted(r for r, _, _ in done) != sorted(queries):
+        raise AssertionError("the replicas lost or renamed a request")
+    by_epoch = {}
+    for rid, emb, st in done:
+        by_epoch.setdefault(st.extras["service"]["epoch"], []).append(
+            (rid, emb))
+    for epoch, results in by_epoch.items():
+        single = serve.GraphQueryService(pinned[epoch], cfg)
+        local = {single.submit(queries[rid]): emb for rid, emb in results}
+        for rid, emb, _ in single.run_to_completion():
+            if emb_set(emb) != emb_set(local[rid]):
+                raise AssertionError(f"replica result != one service's at "
+                                     f"epoch {epoch}")
+    loads = {k: int(v["repro_service_admitted_total"]["series"].get((), 0))
+             for k, v in router.metrics_snapshot().items()}
+    log(f"  replicas: {len(done)} of 16 requests back with global rids, "
+        f"admitted per replica {loads}, epochs {sorted(by_epoch)}; each "
+        f"equal to one service's on its pinned snapshot")
+    router.shutdown()
+    for snap in pinned.values():
+        store.release(snap.epoch)
+
+
+class TickTimer:
+    """Per-tick seconds of the service's parts: the functions
+    ``serve/graph_service.py`` calls, wrapped and synchronised at both
+    ends, and the service's epoch pin (snapshot build and host copy)."""
+
+    PARTS = ("prepare_padded_query", "store_prefilter", "to_host",
+             "batched_ilgf_round", "search_filtered")
+
+    def __init__(self, gs, svc):
+        self.gs, self.cur = gs, None
+        self.saved = {name: getattr(gs, name) for name in self.PARTS}
+        for name, fn in self.saved.items():
+            setattr(gs, name, self._wrap(name, fn))
+        svc._pin_current = self._wrap("epoch_pin", svc._pin_current)
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            if self.cur is not None:
+                self.cur[name] = self.cur.get(name, 0.0) + \
+                    time.perf_counter() - t0
+            return out
+        return timed
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.gs, name, fn)
+
+
+def timed_tick(main, svc, timer, profiled: bool):
+    """One ``tick`` (an entry-point call) with its wall time split into
+    admission, rounds and finalize; ``profiled`` runs it under
+    torch.profiler."""
+    rounds = svc.metrics.counter("repro_service_rounds_total")
+    r0 = rounds.value()
+    timer.cur = {}
+    box = []
+    call = lambda: box.extend(main.run("service_scale", svc.tick))  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if profiled:
+        profile("scale service tick", call, top=10, host_top=6)
+    else:
+        call()
+    torch.cuda.synchronize()
+    parts, timer.cur = timer.cur, None
+    done = box
+    get = lambda k: parts.get(k, 0.0)  # noqa: E731
+    enum = sum(st.search_seconds for _, _, st in done)
+    plan = sum(st.extras["plan"]["plan_seconds"] for _, _, st in done)
+    rec = {
+        "wall": time.perf_counter() - t0, "dispatches": int(rounds.value() - r0),
+        "finished": len(done), "host_ords": get("prepare_padded_query"),
+        "store_prefilter": get("store_prefilter"),
+        "epoch_pin": get("epoch_pin") - get("to_host"),
+        "host_copy": get("to_host"), "rounds": get("batched_ilgf_round"),
+        "finalize": get("search_filtered"), "enumeration": enum, "plan": plan,
+        "profiled": profiled,
+    }
+    rec["admission"] = (rec["host_ords"] + rec["store_prefilter"]
+                        + get("epoch_pin"))
+    rec["compaction"] = rec["finalize"] - enum - plan
+    return done, rec
+
+
+def service_scale(main, core, graphs, serve, gs, scale: float):
+    """The scale service: 4 dense queries, a tick, one 65,536-record batch
+    through the service, 4 more queries, ticks to the end; each tick's
+    parts, queries/s, peak memory, one tick under the profiler."""
+    store, stream, _ = scale_store(main, core, graphs, scale)
+    cap = service_cap(store)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    svc, built_s = synced_s(lambda: serve.GraphQueryService(
+        store, serve.GraphServiceConfig(enumerator="device",
+                                        plan_queries=True)))
+    log(f"[11 service] scale store at epoch {store.epoch} ({store.n_edges} "
+        f"edges, degree cap {cap}; service built in {built_s:.3f} s), "
+        f"GraphServiceConfig() with "
+        f"enumerator='device', plan_queries=True: {SCALE_SERVICE_QUERIES} "
+        f"dense 10-vertex queries, one tick, a {STREAM_RECORDS:,}-record "
+        f"batch at {DELETE_FRAC:.0%} deletes, {SCALE_SERVICE_QUERIES} more")
+    pin0 = store.pin()
+    pinned = {pin0.epoch: pin0}
+    qs = [graphs.random_walk_query(pin0.graph, 10, sparse=False, seed=s,
+                                   device="cuda")
+          for s in range(3, 3 + 2 * SCALE_SERVICE_QUERIES)]
+    queries, done, ticks = {}, [], []
+    timer = TickTimer(gs, svc)
+    try:
+        for q in qs[:SCALE_SERVICE_QUERIES]:
+            queries[main.run("service_scale", lambda q=q: svc.submit(q))] = q
+        out, rec = timed_tick(main, svc, timer, profiled=False)
+        done += out
+        ticks.append(rec)
+        gone, new = split_batch(stream.batch(len(stream.batches)))
+        apply_s = []
+        for edges, call in ((gone, svc.remove_edges), (new, svc.add_edges)):
+            _, s = synced_s(lambda: main.run("service_scale_mutate",
+                                             lambda: call(edges)))
+            apply_s.append(s)
+        for q in qs[SCALE_SERVICE_QUERIES:]:
+            queries[main.run("service_scale", lambda q=q: svc.submit(q))] = q
+        while svc.queue or svc.n_active:
+            out, rec = timed_tick(main, svc, timer, profiled=len(ticks) == 2)
+            done += out
+            ticks.append(rec)
+            if store.epoch not in pinned:  # admitted there: the snapshot is cached
+                pinned[store.epoch] = store.pin(store.epoch)
+    finally:
+        timer.restore()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  batch through the service: remove_edges {apply_s[0]:.4f} s "
+        f"({gone.shape[0]} records), add_edges {apply_s[1]:.4f} s "
+        f"({new.shape[0]} records)")
+    for i, r in enumerate(ticks):
+        log(f"  tick {i}{' (profiled)' if r['profiled'] else ''}: wall "
+            f"{r['wall']:.4f} s, dispatches {r['dispatches']}, finished "
+            f"{r['finished']}; admission {r['admission']:.4f} s (host ords + "
+            f"query digest {r['host_ords']:.4f}, store_prefilter "
+            f"{r['store_prefilter']:.4f}, epoch pin {r['epoch_pin']:.4f} + "
+            f"host copy {r['host_copy']:.4f}), rounds {r['rounds']:.4f} s, "
+            f"finalize {r['finalize']:.4f} s (compaction "
+            f"{r['compaction']:.4f}, enumeration {r['enumeration']:.4f}, "
+            f"plan {r['plan']:.4f}), other "
+            f"{r['wall'] - r['admission'] - r['rounds'] - r['finalize']:.4f}")
+    plain = [r for r in ticks if not r["profiled"]]
+    wall = sum(r["wall"] for r in plain)
+    n_rounds = sum(r["dispatches"] for r in ticks)
+    sums = {k: sum(r[k] for r in plain) for k in (
+        "admission", "host_ords", "store_prefilter", "epoch_pin", "host_copy",
+        "rounds", "finalize", "compaction", "enumeration", "plan")}
+    log(f"  scale service: {len(ticks)} ticks, {n_rounds} rounds "
+        f"({n_rounds / len(ticks):.2f} dispatches a tick, at most "
+        f"{max(r['dispatches'] for r in ticks)}); {len(done)} queries in "
+        f"{wall:.4f} s of unprofiled ticks = {len(done) / wall:.4f} "
+        f"queries/s (with the batch's {sum(apply_s):.4f} s: "
+        f"{len(done) / (wall + sum(apply_s)):.4f}); parts over those ticks "
+        f"{ {k: round(v, 4) for k, v in sums.items()} }; peak device memory "
+        f"{peak:.3f} GiB")
+    if len(done) != 2 * SCALE_SERVICE_QUERIES:
+        raise AssertionError("a scale request did not complete")
+    if max(r["dispatches"] for r in ticks) < 2:
+        raise AssertionError("no scale tick dispatched two pinned epochs")
+    t1 = time.perf_counter()
+    per_epoch, _ = check_served(core, graphs, done, queries, pinned, "scale")
+    log(f"  every scale result equals the engine on its pinned snapshot "
+        f"({time.perf_counter() - t1:.1f} s of checks); results per epoch "
+        f"{per_epoch}, embeddings {[e.shape[0] for _, e, _ in done]}")
+    for snap in pinned.values():
+        store.release(snap.epoch)
+
+
+def phase_service(main, core, graphs, scale: float, join=None):
+    """Phase 11: the join-heavy service (phase 9's store, or a fresh one),
+    then the scale service."""
+    import tempfile
+
+    from repro_torch import serve
+    from repro_torch.serve import graph_service as gs
+
+    g, store = join if join is not None else join_store(core, graphs)[:2]
+    t0 = time.perf_counter()
+    # the join-heavy results' DFS oracles run in host processes while the
+    # scale service runs
+    with oracle_pool() as pool, tempfile.TemporaryDirectory() as directory:
+        pending = service_join(main, core, graphs, serve, g, store,
+                               directory, pool)
+        t1 = time.perf_counter()
+        service_scale(main, core, graphs, serve, gs, scale)
+        t2 = time.perf_counter()
+        check_oracles(pending)
+    log(f"  the join-heavy service's {len(pending)} results equal their DFS "
+        f"oracles ({time.perf_counter() - t2:.1f} s waited for them); phase "
+        f"11 parts: join-heavy service {t1 - t0:.1f} s, scale service "
+        f"{t2 - t1:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1844,7 +2332,7 @@ def phase_serve(main, lm, arch: str):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                         help="comma-separated phase numbers to run")
     parser.add_argument("--scale", type=float, default=1.0,
                         help="common factor on the scale graph's (and the "
@@ -1876,7 +2364,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     kind = phase_device()
     phase_build(kernel_ops)
-    max_err, timings = {}, {}
+    max_err, timings, stores = {}, {}, {}
     if 3 in phases:
         err, tim = phase_kernels(ops, ref, search, core, graphs, "cuda")
         max_err.update(err)
@@ -1897,9 +2385,11 @@ def main(argv=None) -> int:
                     (6, lambda: phase_scale(main, core, graphs, args.scale)),
                     (7, lambda: phase_batch(main, core, graphs, args.scale)),
                     (9, lambda: phase_store(main, core, graphs, args.scale,
-                                            upd_ops, upd_ref, enc_ops)),
+                                            upd_ops, upd_ref, enc_ops, stores)),
                     (10, lambda: [phase_serve(main, lm_modules(), arch)
-                                  for arch in SERVE_ARCHS])):
+                                  for arch in SERVE_ARCHS]),
+                    (11, lambda: phase_service(main, core, graphs, args.scale,
+                                               stores.get("join")))):
         if num in phases:
             main.phase = num
             t0 = time.perf_counter()
@@ -1925,12 +2415,20 @@ def main(argv=None) -> int:
                     (9, "store"): ("cni_update",), (9, "store_query"): path,
                     (9, "store_batch"): path,
                     (10, "granite-3-2b"): ("flash_attention",),
-                    (10, "rwkv6-7b"): ("wkv6",)}
+                    (10, "rwkv6-7b"): ("wkv6",),
+                    (11, "service"): path,
+                    (11, "service_mutate"): ("cni_update",),
+                    (11, "replicas"): path + ("cni_update",),
+                    (11, "service_scale"): path,
+                    (11, "service_scale_mutate"): ("cni_update",)}
         for (num, entry), names in required.items():
             for name in names:
                 if num in phases and main.counts[(num, entry)][name] == 0:
                     raise AssertionError(
                         f"{name} never launched on phase {num}'s {entry} path")
+        # a warm restore reads the maintained digests: it encodes nothing
+        if 11 in phases and main.counts[(11, "restore")]["cni_encode"]:
+            raise AssertionError("the service restore launched cni_encode")
     if 3 in phases:
         timings["candidate_filter"] = timings["candidate_filter_exact"]
         kernels = []

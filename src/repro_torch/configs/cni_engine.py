@@ -14,6 +14,10 @@ class CniEngineConfig:
     # by (d_max, |L(Q)|, |V(Q)|) rounded to powers of two; max_batch bounds
     # the padded batch dim of one batched ILGF round.
     max_batch: int = 32
+    # Serving front-end (serve/graph_service.py): static slot shapes.
+    service_slots: int = 8
+    service_max_query_vertices: int = 16
+    service_max_query_labels: int = 16
 
 
 CONFIG = CniEngineConfig()

@@ -30,8 +30,12 @@ Engines read the index through ``store_prefilter``: the round-0 candidate
 mask of a query from the maintained counts and digests, with no edge
 scatter and no full-graph encode.
 
-The persistence hooks and the vertex-partitioned ``ShardedIncrementalIndex``
-belong to later slices of the port and raise ``NotImplementedError``.
+``checkpoint_state`` / ``from_checkpoint_state`` carry the maintained
+state through the durable tier (``serve/persist.py``), so a restore is
+warm: no rebuild, hence no ``cni_encode``.  The restore also reads a
+snapshot the reference wrote, whose exact digest is the uint64 leaf
+``cni_u64``.  The vertex-partitioned ``ShardedIncrementalIndex`` belongs to
+a later slice of the port and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,11 +46,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointError
 from repro_torch.core import filters as flt
 from repro_torch.core.batch_engine import ceil_pow2, prepare_padded_query
 from repro_torch.core.cni import LOG_SAT64, SAT64, default_max_p
 from repro_torch.core.stats import GraphStats
 from repro_torch.graphs.csr import as_numpy
+from repro_torch.device import resolve_device
 from repro_torch.graphs.store import EdgeBatch, GraphStore, later_slice
 from repro_torch.kernels.cni_encode import ops as encode_ops
 from repro_torch.kernels.cni_update import ops as update_ops
@@ -224,14 +230,85 @@ class IncrementalIndex:
             self.graph_stats.apply_records(
                 self._col_of[lo], self._col_of[hi], sign, epoch=store.epoch)
 
+    # -- durable snapshots ---------------------------------------------------
+
     def checkpoint_state(self):
-        raise later_slice("IncrementalIndex.checkpoint_state",
-                          "8 (persistence)")
+        """``(leaves, meta)`` of the maintained state, exactly: a warm
+        restore skips the rebuild.  Leaves are the device tensors as they
+        stand (the checkpoint manager copies them to the host before its
+        writer starts); the planner's ``GraphStats`` rides along under a
+        ``stats_`` prefix."""
+        leaves = {
+            "universe": self.universe,
+            "vlabels": self.vlabels,
+            "counts": self.counts,
+            "deg": self.deg,
+            "cni": self.cni,
+            "cni_log": self.cni_log,
+        }
+        meta = {
+            "type": type(self).__name__,
+            "d_max": int(self.d_max),
+            "d_max_arg": self._d_max_arg,
+            "max_p": int(self.max_p),
+            "epoch": int(self._epoch),
+            "stats": None,
+        }
+        if self.graph_stats is not None:
+            s_leaves, s_meta = self.graph_stats.checkpoint_state()
+            leaves.update({f"stats_{k}": v for k, v in s_leaves.items()})
+            meta["stats"] = s_meta
+        return leaves, meta
 
     @classmethod
-    def from_checkpoint_state(cls, leaves, meta, *, store=None):
-        raise later_slice("IncrementalIndex.from_checkpoint_state",
-                          "8 (persistence)")
+    def from_checkpoint_state(cls, leaves, meta, *, store=None, device=None):
+        """Rebuild the maintained state from ``checkpoint_state()`` output,
+        checked against itself, on ``store.device`` (else ``device``;
+        ``None`` means ``"cuda"``).  A snapshot of the reference carries
+        the exact digest as uint64 ``cni_u64`` (at most SAT64), read here
+        as the port's int64 ``cni``."""
+        cni_key = "cni" if "cni" in leaves else "cni_u64"
+        for k in ("universe", "vlabels", "counts", "deg", cni_key, "cni_log"):
+            if k not in leaves:
+                raise CheckpointError(f"index snapshot is missing leaf {k!r}")
+        idx = cls(d_max=None)
+        idx._d_max_arg = meta.get("d_max_arg")
+        idx.device = store.device if store is not None else resolve_device(
+            device)
+        idx.universe = np.asarray(leaves["universe"])
+        idx.vlabels = np.asarray(leaves["vlabels"], dtype=np.int32)
+        idx.d_max = int(meta["d_max"])
+        idx.max_p = int(meta["max_p"])
+        idx._col_of = np.searchsorted(idx.universe, idx.vlabels)
+        v, lu = int(idx.vlabels.size), int(idx.universe.size)
+        counts = np.asarray(leaves["counts"], dtype=np.int32)
+        if counts.shape != (v, lu):
+            raise CheckpointError(
+                f"index snapshot counts shape {counts.shape} disagrees with "
+                f"(V, Lu) = ({v}, {lu})")
+        cni = np.asarray(leaves[cni_key])
+        if cni.dtype == np.uint64:
+            if cni.size and int(cni.max()) > SAT64:
+                raise CheckpointError("index snapshot cni_u64 exceeds SAT64")
+            cni = cni.astype(np.int64)
+        vectors = {"deg": np.asarray(leaves["deg"], dtype=np.int32),
+                   "cni": np.asarray(cni, dtype=np.int64),
+                   "cni_log": np.asarray(leaves["cni_log"], dtype=np.float32)}
+        for name, arr in vectors.items():
+            if arr.shape != (v,):
+                raise CheckpointError(
+                    f"index snapshot {name} shape {arr.shape} disagrees with "
+                    f"V={v}")
+        idx.counts = torch.as_tensor(counts, device=idx.device)
+        for name, arr in vectors.items():
+            setattr(idx, name, torch.as_tensor(arr, device=idx.device))
+        idx._epoch = int(meta["epoch"])
+        if meta.get("stats") is not None:
+            idx.graph_stats = GraphStats.from_checkpoint_state(
+                {k[len("stats_"):]: val for k, val in leaves.items()
+                 if k.startswith("stats_")},
+                meta["stats"])
+        return idx
 
     # -- views ---------------------------------------------------------------
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.checkpoint import CheckpointError
 from repro_torch.graphs.csr import as_numpy
 
 
@@ -99,6 +100,48 @@ class GraphStats:
             rebucket_frac=self.rebucket_frac)
         out.bucket = self.bucket
         out._drift = self._drift
+        return out
+
+    # -- durable snapshots ---------------------------------------------------
+
+    def checkpoint_state(self):
+        """``(leaves, meta)`` of the exact state, the bucket generation and
+        its drift counter included, so a restored planner sees the same
+        plan-cache keys as the original."""
+        leaves = {
+            "universe": self.universe,
+            "label_hist": self.label_hist,
+            "deg_sum": self.deg_sum,
+            "pair_counts": self.pair_counts,
+        }
+        meta = {
+            "n_vertices": self.n_vertices,
+            "n_edges": self.n_edges,
+            "version": self.version,
+            "rebucket_frac": self.rebucket_frac,
+            "bucket": self.bucket,
+            "drift": self._drift,
+        }
+        return leaves, meta
+
+    @classmethod
+    def from_checkpoint_state(cls, leaves, meta) -> "GraphStats":
+        for k in ("universe", "label_hist", "deg_sum", "pair_counts"):
+            if k not in leaves:
+                raise CheckpointError(f"stats snapshot is missing leaf {k!r}")
+        universe = np.asarray(leaves["universe"])
+        lu = int(universe.size)
+        pair = np.asarray(leaves["pair_counts"], dtype=np.int64)
+        if pair.shape != (lu, lu):
+            raise CheckpointError(
+                f"stats snapshot pair_counts shape {pair.shape} disagrees "
+                f"with universe size {lu}")
+        out = cls(universe, leaves["label_hist"], leaves["deg_sum"], pair,
+                  n_vertices=int(meta["n_vertices"]),
+                  n_edges=int(meta["n_edges"]), version=int(meta["version"]),
+                  rebucket_frac=float(meta["rebucket_frac"]))
+        out.bucket = int(meta["bucket"])
+        out._drift = int(meta["drift"])
         return out
 
     # -- incremental maintenance ---------------------------------------------

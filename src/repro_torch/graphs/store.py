@@ -22,9 +22,12 @@ that changed the edge set, and ``compact_every`` batches trigger a
 compaction.  Snapshots are cached per epoch, pinned and released, and
 built on the store's device (``None`` means ``"cuda"``).
 
-The vertex-partitioned ``ShardedGraphStore`` and the persistence hooks
-(``checkpoint_state``/``from_checkpoint_state``) belong to later slices of
-the port and raise ``NotImplementedError`` naming their ROADMAP items.
+``checkpoint_state`` / ``GraphStore.from_checkpoint_state`` carry the
+logical state (the alive canonical edges, in table order, and the vertex
+labels) through the durable tier (``serve/persist.py``), with the
+reference's leaf names and meta.  The vertex-partitioned
+``ShardedGraphStore`` belongs to a later slice of the port and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from repro_torch.checkpoint import CheckpointError
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph, as_numpy, build_graph
 
@@ -204,13 +208,30 @@ class BaseGraphStore:
     def index(self):
         return self._index
 
-    def checkpoint_state(self):
-        raise later_slice("GraphStore.checkpoint_state", "8 (persistence)")
+    # -- durable snapshots (checkpoint leaves + JSON meta) -------------------
 
-    @classmethod
-    def from_checkpoint_state(cls, leaves, meta):
-        raise later_slice("GraphStore.from_checkpoint_state",
-                          "8 (persistence)")
+    _CKPT_KIND = "graph"
+
+    def checkpoint_state(self):
+        """Logical store state as ``(leaves, meta)`` for the durable tier:
+        host arrays of the alive canonical edges (in table order) and the
+        vertex labels, and the JSON-serialisable meta that rebuilds the
+        store around them."""
+        lo, hi, lab = self.alive_edges()
+        leaves = {
+            "vlabels": self.vlabels,
+            "edge_lo": np.asarray(lo, dtype=np.int64),
+            "edge_hi": np.asarray(hi, dtype=np.int64),
+            "edge_lab": np.asarray(lab, dtype=np.int64),
+        }
+        meta = {
+            "kind": self._CKPT_KIND,
+            "n_vertices": self.n_vertices,
+            "epoch": self.epoch,
+            "degree_cap": self.degree_cap,
+            "compact_every": self.compact_every,
+        }
+        return leaves, meta
 
     # -- mutation ------------------------------------------------------------
 
@@ -373,6 +394,20 @@ class GraphStore(BaseGraphStore):
         self._keys = np.zeros(0, dtype=np.int64)
         self._rows = np.zeros(0, dtype=np.int64)
 
+    @classmethod
+    def from_checkpoint_state(cls, leaves, meta, *, device=None) -> "GraphStore":
+        """Rebuild a store from ``checkpoint_state()`` output, validated
+        first; its snapshots go to ``device`` (``None`` means ``"cuda"``).
+        Rows keep the snapshot's order, so ``alive_edges`` does too."""
+        n, vlab, lo, hi, lab = _ckpt_restore_arrays(leaves, meta)
+        store = cls(n, vlab, degree_cap=meta.get("degree_cap"),
+                    compact_every=int(meta.get("compact_every", 64)),
+                    device=device)
+        store._append_rows(lo, hi, lab)
+        store._add_degrees(lo, hi, 1)
+        store.epoch = int(meta["epoch"])
+        return store
+
     def _lookup(self, keys):
         rows = np.full(keys.shape, -1, dtype=np.int64)
         if self._keys.size:
@@ -451,11 +486,47 @@ class GraphStore(BaseGraphStore):
         return int((~self._alive).sum())
 
 
+def _ckpt_restore_arrays(leaves: dict, meta: dict):
+    """Check a store snapshot's edge leaves against its meta: a truncated
+    or tampered snapshot raises ``CheckpointError`` instead of restoring a
+    wrong edge set."""
+    for k in ("vlabels", "edge_lo", "edge_hi", "edge_lab"):
+        if k not in leaves:
+            raise CheckpointError(f"store snapshot is missing leaf {k!r}")
+    n = int(meta["n_vertices"])
+    vlab = np.asarray(leaves["vlabels"], dtype=np.int32)
+    if vlab.shape != (n,):
+        raise CheckpointError(
+            f"store snapshot vlabels shape {vlab.shape} disagrees with "
+            f"n_vertices={n}")
+    lo = np.asarray(leaves["edge_lo"], dtype=np.int64)
+    hi = np.asarray(leaves["edge_hi"], dtype=np.int64)
+    lab = np.asarray(leaves["edge_lab"], dtype=np.int64)
+    if not (lo.shape == hi.shape == lab.shape):
+        raise CheckpointError("store snapshot edge arrays disagree in length")
+    if lo.size and (lo.min() < 0 or hi.max() >= n or not (lo < hi).all()):
+        raise CheckpointError(
+            "store snapshot edge table is not canonical (need 0 <= lo < hi "
+            f"< {n})")
+    if np.unique(lo * n + hi).size != lo.size:
+        raise CheckpointError("store snapshot edge table repeats an edge")
+    return n, vlab, lo, hi, lab
+
+
 class ShardedGraphStore(BaseGraphStore):
     """The vertex-partitioned store of the reference; not ported yet."""
 
     def __init__(self, *args, **kwargs):
         raise later_slice("ShardedGraphStore", "11 (multi-device)")
+
+    def checkpoint_state(self):
+        raise later_slice("ShardedGraphStore.checkpoint_state",
+                          "11 (multi-device)")
+
+    @classmethod
+    def from_checkpoint_state(cls, leaves, meta, *, device=None):
+        raise later_slice("ShardedGraphStore.from_checkpoint_state",
+                          "11 (multi-device)")
 
 
 def as_snapshot(data) -> GraphSnapshot:

@@ -1,6 +1,7 @@
 """Typed telemetry reports (the port's copy of the reference's
-``PlanReport``/``EnumReport``/``EnumLevel``/``BatchReport`` schema, cut to
-what this package fills).
+``PlanReport``/``EnumReport``/``EnumLevel``/``BatchReport``/``ServiceReport``
+schema, cut to what this package fills: the out-of-core ``OocReport`` comes
+with that tier).
 
 Each report is a ``Mapping``, so ``report["device_rounds"]`` and
 ``dict(report)`` behave as the plain dicts the searchers fill; ``from_dict``
@@ -36,6 +37,7 @@ _SCALAR_CHECKS = {
     "bool": lambda x: isinstance(x, bool),
     "str": lambda x: isinstance(x, str),
     "str | None": lambda x: x is None or isinstance(x, str),
+    "int | None": lambda x: x is None or isinstance(x, int),
 }
 
 
@@ -239,3 +241,43 @@ class BatchReport(Report):
             self, "bucket", tuple(int(x) for x in self.bucket)
         )
         super().__post_init__()
+
+
+@dataclass(eq=False)
+class ServiceReport(Report):
+    """``stats.extras["service"]`` — scheduling facts for one request of
+    the graph-query service.  ``deadline_missed`` records a request that
+    completed after its deadline (a request still queued at its deadline
+    expires instead)."""
+
+    slot: int
+    epoch: int
+    queue_seconds: float
+    rounds: int = 0
+    trace_id: int | None = None
+    tenant: str = "default"
+    priority: int = 0
+    deadline_missed: bool = False
+
+
+REPORT_TYPES: dict[str, type] = {
+    "plan": PlanReport,
+    "enum": EnumReport,
+    "batch": BatchReport,
+    "service": ServiceReport,
+}
+
+
+def validate_extras(extras: Mapping) -> None:
+    """Raise unless every known ``stats.extras`` key carries its typed,
+    valid report; unknown keys (scalars such as
+    ``store_prefilter_alive``) pass through."""
+    for key, cls in REPORT_TYPES.items():
+        if key in extras:
+            rep = extras[key]
+            if not isinstance(rep, cls):
+                raise ValueError(
+                    f"extras[{key!r}]: expected {cls.__name__}, got "
+                    f"{type(rep).__name__}"
+                )
+            rep.validate()

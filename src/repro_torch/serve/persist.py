@@ -1,0 +1,134 @@
+"""Durable service snapshots: store + CNI index + planner stats per epoch
+(port of ``repro.serve.persist``, same layout and checks).
+
+``ServiceCheckpointer`` joins the serving tier (``serve/graph_service.py``)
+to the checkpoint substrate (``checkpoint/ckpt.py``): one checkpoint step
+per saved store epoch, holding
+
+* the store's logical state (``checkpoint_state()``: the alive canonical
+  edges and the vertex labels), and
+* the incremental index's maintained state (counts, degrees, exact and log
+  digests) with the planner's ``GraphStats`` beside it, so a restore is
+  warm: no rebuild and no ``cni_encode``, and the first admitted query
+  prefilters against the digests the original service maintained.
+
+Leaves are keyed ``store/...`` and ``index/...``; the sorted key list is
+recorded in the manifest, and the checkpoint flattens a dict in sorted-key
+order, so the mapping back is exact.  ``restore_latest`` also reads a
+directory the reference wrote (same layout; its exact digest leaf is the
+uint64 ``index/cni_u64``): the way state carries from the JAX package into
+the port.
+
+Every restore checks the leaves against the manifest and the parts'
+metas against each other (``leaf_keys``, the store kind, the index type,
+the index epoch against the store epoch) and raises ``CheckpointError``
+on a disagreement.  The out-of-core and sharded store kinds belong to later
+slices of the port and raise ``NotImplementedError`` naming their items.
+"""
+
+from __future__ import annotations
+
+from repro_torch.checkpoint import CheckpointError, CheckpointManager
+from repro_torch.core.incremental import IncrementalIndex
+from repro_torch.graphs.store import GraphStore, later_slice
+
+SCHEMA_VERSION = 1
+
+# store kinds and index types a snapshot may name, and the later slices
+# that bring the ones the port lacks
+_LATER_STORES = {"ooc": "10 (out-of-core tier)", "sharded": "11 (multi-device)"}
+_LATER_INDEXES = {"ShardedIncrementalIndex": "11 (multi-device)"}
+
+
+class ServiceCheckpointer:
+    """Keep-last-k durable snapshots of one store (and its index).
+
+    ``save`` is asynchronous by default (the writer thread persists while
+    the service keeps ticking); a failed write re-raises as
+    ``CheckpointError`` on ``wait()`` or the next ``save()``.
+    """
+
+    def __init__(self, directory: str, *, keep: int = 3,
+                 async_write: bool = True):
+        self.directory = directory
+        self.manager = CheckpointManager(directory, keep=keep,
+                                         async_write=async_write)
+
+    # -- write side ----------------------------------------------------------
+
+    def save(self, store) -> int:
+        """Snapshot the store (and index) at its current epoch; returns the
+        step, which is the epoch.  Re-saving an epoch is idempotent."""
+        leaves: dict = {}
+        meta: dict = {"schema": SCHEMA_VERSION}
+        s_leaves, s_meta = store.checkpoint_state()
+        leaves.update({f"store/{k}": v for k, v in s_leaves.items()})
+        meta["store"] = s_meta
+        if store.index is not None:
+            i_leaves, i_meta = store.index.checkpoint_state()
+            leaves.update({f"index/{k}": v for k, v in i_leaves.items()})
+            meta["index"] = i_meta
+        else:
+            meta["index"] = None
+        meta["leaf_keys"] = sorted(leaves)
+        step = int(store.epoch)
+        self.manager.save(step, leaves, extra=meta)
+        return step
+
+    def wait(self) -> None:
+        """Block until the in-flight async write commits (re-raises its
+        failure, if any)."""
+        self.manager.wait()
+
+    # -- read side -----------------------------------------------------------
+
+    def restore_latest(self, *, device=None):
+        """``(step, store)`` rebuilt from the newest committed snapshot, the
+        store and its index on ``device`` (``None`` means ``"cuda"``);
+        ``(None, None)`` when the directory holds no committed step."""
+        step, leaf_list, manifest = self.manager.load_latest_leaves()
+        if step is None:
+            return None, None
+        meta = manifest["extra"]
+        keys = meta.get("leaf_keys")
+        if not isinstance(keys, list) or len(keys) != len(leaf_list):
+            raise CheckpointError(
+                f"service snapshot step {step}: leaf_keys "
+                f"({'missing' if keys is None else len(keys)}) disagrees "
+                f"with {len(leaf_list)} stored leaves")
+        leaves = dict(zip(keys, leaf_list))
+        store_meta = meta.get("store")
+        if not isinstance(store_meta, dict) or "kind" not in store_meta:
+            raise CheckpointError(
+                f"service snapshot step {step} has no store meta")
+        kind = store_meta["kind"]
+        if kind in _LATER_STORES:
+            raise later_slice(f"restoring a {kind!r} store snapshot",
+                              _LATER_STORES[kind])
+        if kind != "graph":
+            raise CheckpointError(
+                f"service snapshot has unknown store kind {kind!r}")
+        store = GraphStore.from_checkpoint_state(
+            _part(leaves, "store/"), store_meta, device=device)
+        idx_meta = meta.get("index")
+        if idx_meta is not None:
+            itype = idx_meta.get("type")
+            if itype in _LATER_INDEXES:
+                raise later_slice(f"restoring a {itype}",
+                                  _LATER_INDEXES[itype])
+            if itype != "IncrementalIndex":
+                raise CheckpointError(
+                    f"service snapshot has unknown index type {itype!r}")
+            idx = IncrementalIndex.from_checkpoint_state(
+                _part(leaves, "index/"), idx_meta, store=store)
+            try:
+                store.attach_index(idx, rebuild=False)
+            except ValueError as err:  # epoch disagreement: torn snapshot
+                raise CheckpointError(str(err)) from err
+        return int(step), store
+
+
+def _part(leaves: dict, prefix: str) -> dict:
+    """The leaves under ``prefix``, keyed without it."""
+    return {k[len(prefix):]: v for k, v in leaves.items()
+            if k.startswith(prefix)}

@@ -36,6 +36,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
+from repro_torch.serve import GraphQueryService, GraphServiceConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -619,3 +620,78 @@ def test_serve_engine_on_card_equals_cpu(cuda, arch):
             eng.submit(prompt, max_new)
         out.append(eng.run_to_completion())
     assert out[1] == out[0]
+
+
+# ---------------------------------------------------------------------------
+# the graph-query service on the card
+# ---------------------------------------------------------------------------
+
+
+def _service_stream(device, ckpt_dir=None):
+    """A small store-backed service on ``device``: waves of queries between
+    ticks and two mutations; returns the service, its finished triples and
+    the kernels' launch counts over the stream."""
+    g = random_labeled_graph(3000, 15000, 6, n_edge_labels=2, seed=11,
+                             device="cpu")
+    store = GraphStore.from_graph(g, degree_cap=32, device=device)
+    store.attach_index(IncrementalIndex())
+    svc = GraphQueryService(store, GraphServiceConfig(
+        max_slots=4, max_query_vertices=8, max_query_labels=8,
+        enumerator="device", plan_queries=True, max_queue_depth=6,
+        tenant_quota=5, checkpoint_dir=ckpt_dir, checkpoint_async=False))
+    kernels = (ops, enc_ops, cf_ops, upd_ops)
+    for m in kernels:
+        m.reset_launches()
+    done = []
+    batches = random_update_batches(g, 2, 200, delete_frac=0.35, seed=12)
+    for wave in range(3):
+        for i in range(6):
+            q = random_walk_query(g, 4 + i % 3, sparse=bool(i % 2),
+                                  seed=100 * wave + i, device="cpu")
+            try:
+                svc.submit(q, tenant=f"t{i % 2}", priority=i % 2)
+            except Exception as err:  # noqa: BLE001 — rejections are counted
+                assert type(err).__name__ == "AdmissionRejected"
+        done += svc.tick()
+        if wave < len(batches):
+            b = batches[wave]
+            edges = np.stack([b.src, b.dst], 1)
+            svc.remove_edges(edges[~b.insert & b.valid])
+            svc.add_edges(edges[b.insert & b.valid])
+    done += svc.run_to_completion()
+    launches = {k: v for m in kernels for k, v in m.launch_counts().items()}
+    return svc, done, launches
+
+
+def test_service_on_card_equals_cpu(cuda):
+    got_svc, got, launches = _service_stream("cuda")
+    want_svc, want, _ = _service_stream("cpu")
+    assert [r for r, _, _ in got] == [r for r, _, _ in want]
+    for (_, emb, st), (_, w_emb, w_st) in zip(got, want):
+        np.testing.assert_array_equal(emb, w_emb)
+        assert st.ilgf_iterations == w_st.ilgf_iterations
+        assert st.extras["service"]["epoch"] == w_st.extras["service"]["epoch"]
+    snap, w_snap = got_svc.metrics_snapshot(), want_svc.metrics_snapshot()
+    for name, fam in w_snap.items():
+        if fam["type"] != "histogram" and name != "repro_process_peak_rss_bytes":
+            assert snap[name]["series"] == fam["series"], name
+    assert got_svc.rejections == want_svc.rejections
+    for name in ("embed_join_count", "embed_join_emit", "cni_encode",
+                 "candidate_filter", "cni_update"):
+        assert launches[name] > 0, name
+
+
+def test_restore_on_card_equals_cpu_snapshot(cuda, tmp_path):
+    svc, _, _ = _service_stream("cpu", ckpt_dir=str(tmp_path))
+    svc.shutdown()
+    before = enc_ops.cni_encode.launches
+    restored = GraphQueryService.restore(str(tmp_path), device="cuda")
+    torch.cuda.synchronize()
+    assert enc_ops.cni_encode.launches == before  # warm: no cni_encode
+    idx, want = restored.store.index, svc.store.index
+    assert idx.counts.device.type == "cuda"
+    assert restored.store.epoch == svc.store.epoch
+    for name in ("counts", "deg", "cni", "cni_log"):
+        assert torch.equal(getattr(idx, name).cpu(), getattr(want, name)), name
+    for a, b in zip(restored.store.alive_edges(), svc.store.alive_edges()):
+        np.testing.assert_array_equal(a, b)

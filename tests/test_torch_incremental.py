@@ -360,11 +360,13 @@ def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="item 11"):
         ShardedIncrementalIndex(n_shards=2)
     idx = IncrementalIndex()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        idx.checkpoint_state()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        IncrementalIndex.from_checkpoint_state({}, {})
     store = GraphStore(3, np.zeros(3, np.int32), device="cpu")
     store.attach_index(idx)
     assert store.apply(make_edge_batch([[0, 1]])).n_inserted == 1
     assert idx.counts.device.type == "cpu" and idx._epoch == 1
+    # persistence came with item 8: the hooks round-trip the state
+    leaves, meta = idx.checkpoint_state()
+    back = IncrementalIndex.from_checkpoint_state(leaves, meta, store=store)
+    for name in ("counts", "deg", "cni", "cni_log"):
+        assert torch.equal(getattr(back, name), getattr(idx, name))
+    assert back._epoch == 1 and back.counts.device.type == "cpu"
