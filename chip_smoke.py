@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phases 1,2,3      # device, build, kernel checks
     python3 chip_smoke.py --phases 1,2,3,10   # ... and the LM serving path
     python3 chip_smoke.py --phases 1,2,11     # the graph-query service
+    python3 chip_smoke.py --phases 1,2,8,12   # stream filter, graph index,
+                                              # out-of-core store
 
 Phases:
 
@@ -98,7 +100,14 @@ Phases:
               join kernels on the services' ``submit``/``tick``/
               ``run_to_completion`` and the replicas' calls, cni_update on
               the services' ``add_edges``/``remove_edges``, and no
-              cni_encode in ``GraphQueryService.restore``.
+              cni_encode in ``GraphQueryService.restore``; on phase 12
+              cni_encode and candidate_filter on ``stream_filter_file``,
+              cni_encode on the ``GraphDatabaseIndex`` build and the
+              out-of-core seed (``from_graph`` + ``attach_index``), the
+              filter and join kernels on the out-of-core ``query``,
+              ``query_batch`` and service calls, cni_update on its
+              ``apply`` and the service's mutations, and no cni_encode in
+              its restore.
 9. store    — ``GraphStore`` + ``IncrementalIndex`` on the card: the
               join-heavy graph with ``random_update_batches(.., 8, 4096,
               delete_frac=0.35, seed=1)``, and the scale graph seeded as a
@@ -172,6 +181,36 @@ Phases:
               ords and query digest, ``store_prefilter``, epoch pin and host
               copy), rounds and finalize (compaction, enumeration, plan);
               queries/s, peak device memory, one tick under torch.profiler.
+12. stream/ooc — in a temporary directory whose free space is printed
+              and checked first (the phase fails with the bytes it needs):
+              (a) phase 6's scale graph written src-sorted to an edge file
+              (3.35 GB) and streamed by ``stream_filter_file(chunk_edges=
+              65536, sorted_stream=True)`` with the dense 10-vertex query:
+              its ILGF mask must equal ``ilgf(g, q)`` and its prefilter
+              ``scan_filter``, bit for bit; the StreamStats, the seconds
+              split into file read, device update, finalisation and ILGF
+              (synchronised), peak memory; then the join-heavy graph as an
+              unsorted file, legacy tuples, EdgeBatches and a Graph, with
+              the same checks.  (b) ``GraphDatabaseIndex`` over 1,000
+              graphs of 20-60 vertices (20 labels): build seconds and its
+              cni_encode launches, 8 random-walk queries whose source
+              graph must be a candidate and whose ``query`` must equal a
+              DFS brute force over all 1,000 graphs.  (c)
+              ``OutOfCoreGraphStore.from_graph(g, chunk_edges=65536,
+              degree_cap=64)`` (sort and write, then the streamed index
+              rebuild, timed apart); 4 dense 10-vertex queries through the
+              device-join engine and as one batch, each equal to the
+              in-memory engine and the DFS oracle, with each query's chunk
+              IO, fetch, filter and search seconds; one 65,536-record
+              batch at 35 % deletes (chunk probes and cni_update timed
+              apart), ``compact()``, the index against a streamed scratch
+              rebuild, and the queries again against the in-memory engine
+              on a graph rebuilt from ``alive_edges()``.  (d) phase 11's
+              join-heavy service config over an out-of-core store
+              (chunk_edges 2,048) against an in-memory twin fed the same
+              32 requests and two 512-record batches: equal outcomes, the
+              ``repro_ooc_*`` counters equal to the epochs' reports, and a
+              warm restore (same epoch and generation, no cni_encode).
 
 Any failure propagates: the script exits non-zero and prints no result.
 The last line of a passing run is
@@ -185,6 +224,7 @@ import ctypes
 import dataclasses
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1878,6 +1918,442 @@ def phase_service(main, core, graphs, scale: float, join=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the stream filter, the graph-database index and the out-of-core
+# store
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNK = 65_536
+JOIN_STREAM_CHUNK = 4_096
+OOC_CHUNK = 65_536
+OOC_QUERIES = 4
+DB_GRAPHS = 1000
+DB_QUERIES = 8
+OOC_SERVICE_WAVES = 2  # of SERVICE_WAVE requests: 32 in all
+
+
+class StreamTimer:
+    """Seconds of ``stream_filter_file``'s parts: the file read (the chunk
+    iterator's ``next``), the device update (``_chunk_update``), the
+    finalisation (``_match_any``: each chunk's early finalisation and the
+    final mask) and ILGF on the retained graph, the device parts
+    synchronised at both ends."""
+
+    PARTS = ("_chunk_update", "_match_any", "ilgf")
+    NAMES = ("device update", "finalisation", "ILGF on the retained graph")
+
+    def __init__(self, stream_mod):
+        self.mod = stream_mod
+        self.seconds = dict.fromkeys(("file read",) + self.NAMES, 0.0)
+        self.saved = {n: getattr(stream_mod, n)
+                      for n in self.PARTS + ("iter_update_batches",)}
+        for name, label in zip(self.PARTS, self.NAMES):
+            setattr(stream_mod, name, self._synced(label, self.saved[name]))
+        stream_mod.iter_update_batches = self._reader(
+            self.saved["iter_update_batches"])
+
+    def _synced(self, label, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[label] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def _reader(self, fn):
+        def timed(*args, **kwargs):
+            it = fn(*args, **kwargs)
+            while True:
+                t0 = time.perf_counter()
+                item = next(it, None)
+                self.seconds["file read"] += time.perf_counter() - t0
+                if item is None:
+                    return
+                yield item
+        return timed
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+def check_stream(core, res, g, q, chunk, tag):
+    """The stream's ILGF mask equals the in-memory ILGF on the card, its
+    prefilter equals ``scan_filter``, and it saw every record."""
+    if not torch.equal(res.ilgf_result.alive, core.ilgf(g, q).alive):
+        raise AssertionError(f"{tag}: stream ILGF != in-memory ILGF")
+    if not np.array_equal(res.prefilter_alive,
+                          core.scan_filter(g, q, chunk_edges=chunk)):
+        raise AssertionError(f"{tag}: stream prefilter != scan_filter")
+    if (res.stats.total_edges_seen != g.n_directed_edges
+            or res.stats.n_chunks < -(-g.n_directed_edges // chunk)):
+        raise AssertionError(f"{tag}: the stream missed records: {res.stats}")
+
+
+def stream_scale(main, core, graphs, g, q, tmp):
+    """(a) Algorithm 6 over the scale graph's src-sorted edge file."""
+    path = os.path.join(tmp, "scale.bin")
+    t0 = time.perf_counter()
+    graphs.write_edge_file(path, g, sorted_by_src=True)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    d_max = graphs.max_degree(g)
+    log(f"[12 stream/ooc] (a) scale edge file: {size:,} bytes "
+        f"({g.n_directed_edges:,} records) written in {write_s:.1f} s; "
+        f"stream_filter_file(chunk_edges={STREAM_CHUNK:,}, d_max={d_max}, "
+        f"sorted_stream=True), the dense 10-vertex query")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    timer = StreamTimer(core.stream)
+    try:
+        res, wall = synced_s(lambda: main.run(
+            "stream", lambda: core.stream_filter_file(
+                path, g.vlabels, q, chunk_edges=STREAM_CHUNK, d_max=d_max,
+                sorted_stream=True)))
+    finally:
+        timer.restore()
+        os.remove(path)
+    peak = torch.cuda.max_memory_allocated() - held
+    st, parts = res.stats, timer.seconds
+    log(f"  chunks {st.n_chunks}, total_edges_seen {st.total_edges_seen:,}, "
+        f"peak_retained_edges {st.peak_retained_edges:,}, "
+        f"final_retained_edges {st.final_retained_edges:,}, "
+        f"pruned_during_stream {st.pruned_during_stream:,}; prefilter alive "
+        f"{int(res.prefilter_alive.sum()):,}, ILGF alive "
+        f"{int(res.ilgf_result.alive.sum())} in {res.ilgf_result.iterations} "
+        f"rounds")
+    log(f"  wall {wall:.3f} s (synchronised parts): "
+        f"{ {k: round(v, 4) for k, v in parts.items()} }, other host work "
+        f"{wall - sum(parts.values()):.4f} s; peak device memory "
+        f"{peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held")
+    check_stream(core, res, g, q, STREAM_CHUNK, "scale stream")
+    log("  ILGF mask == in-memory ilgf(g, q) and prefilter == scan_filter, "
+        "bit for bit")
+
+
+def stream_join(main, core, graphs, gj, tmp):
+    """(a) The unsorted edge file and the iterator sources at the
+    join-heavy size, with the same checks."""
+    qj = graphs.random_walk_query(gj, 5, sparse=True, seed=2, device="cuda")
+    path = os.path.join(tmp, "join.bin")
+    graphs.write_edge_file(path, gj, sorted_by_src=False)
+    src, dst, elab = (x.cpu().numpy().astype(np.int32)
+                      for x in (gj.src, gj.dst, gj.elabels))
+    perm = np.random.default_rng(3).permutation(src.size)
+    src, dst, elab = src[perm], dst[perm], elab[perm]
+    cuts = range(0, src.size, 3_000)
+    tuples = [(src[a:a + 3_000], dst[a:a + 3_000], elab[a:a + 3_000],
+               np.ones(min(3_000, src.size - a), bool)) for a in cuts]
+    batches = [graphs.EdgeBatch(*t[:3], insert=t[3].copy(), valid=t[3])
+               for t in tuples]
+    sources = (("unsorted file", path, False), ("legacy tuples", tuples, False),
+               ("EdgeBatches", batches, False), ("graph", gj, True))
+    d_max = graphs.max_degree(gj)
+    for name, source, sorted_stream in sources:
+        res, wall = synced_s(lambda: main.run(
+            "stream", lambda: core.stream_filter_file(
+                source, gj.vlabels, qj, chunk_edges=JOIN_STREAM_CHUNK,
+                d_max=d_max, sorted_stream=sorted_stream)))
+        check_stream(core, res, gj, qj, JOIN_STREAM_CHUNK, f"join {name}")
+        log(f"  join-heavy {name} (sorted_stream={sorted_stream}): "
+            f"{tuple(res.stats)} in {wall:.3f} s; equal to the in-memory "
+            f"ILGF and scan_filter")
+    os.remove(path)
+
+
+def graph_index_phase(main, core, graphs):
+    """(b) The graph-database index over 1,000 AIDS-sized graphs."""
+    t0 = time.perf_counter()
+    db = [graphs.random_labeled_graph(20 + i % 41, int(1.1 * (20 + i % 41)),
+                                      20, seed=1000 + i, device="cuda")
+          for i in range(DB_GRAPHS)]
+    gen_s = time.perf_counter() - t0
+    index, build_s = synced_s(lambda: main.run(
+        "graph_index", lambda: core.GraphDatabaseIndex(db)))
+    encodes = main.counts[(12, "graph_index")]["cni_encode"]
+    log(f"[12 stream/ooc] (b) graph-database index: {DB_GRAPHS} graphs "
+        f"({sum(g.n_vertices for g in db):,} V, "
+        f"{sum(g.n_edges for g in db):,} E; generated in {gen_s:.2f} s), built "
+        f"in {build_s:.4f} s with {encodes} cni_encode launch(es)")
+    hosts = [graphs.to_host(g) for g in db]
+    n_cands = []
+    for s in range(DB_QUERIES):
+        i = (131 * s + 7) % DB_GRAPHS
+        q = graphs.random_walk_query(db[i], 4 + s % 5, seed=s, device="cuda")
+        cands = main.run("graph_index_query", lambda: index.candidates(q))
+        got = main.run("graph_index_query", lambda: index.query(q))
+        if i not in cands:
+            raise AssertionError(f"index query {s}: source graph {i} pruned")
+        q_host = graphs.to_host(q)
+        truth = {}
+        for j, h in enumerate(hosts):
+            cand = h.vlabels[:, None] == q_host.vlabels[None, :]
+            emb = core.host_dfs_search(h, q_host, cand)
+            if emb.shape[0]:
+                truth[j] = emb
+        if set(got) != set(truth) or any(
+                emb_set(got[j]) != emb_set(truth[j]) for j in truth):
+            raise AssertionError(f"index query {s}: query != DFS brute force "
+                                 "over every graph")
+        n_cands.append(len(cands))
+        log(f"  query {s} ({q.n_vertices} V from graph {i}): {len(cands)} "
+            f"candidates, {len(truth)} graphs with embeddings, equal to the "
+            f"DFS brute force over all {DB_GRAPHS}")
+    log(f"  candidates per query {n_cands}")
+
+
+def ooc_report(st):
+    t = st.extras["ooc"]
+    return (f"prefilter alive {st.extras['store_prefilter_alive']:,}, chunks "
+            f"{t['chunks_read']}/{t['n_chunks']}, {t['bytes_read']:,} bytes, "
+            f"hits/misses {t['cache_hits']}/{t['cache_misses']}, "
+            f"edges_fetched {t['edges_fetched']:,}, fetch "
+            f"{t['fetch_seconds']:.3f} s, ILGF {st.ilgf_iterations} rounds, "
+            f"filter {st.filter_seconds:.3f} s, search "
+            f"{st.search_seconds:.4f} s")
+
+
+def ooc_queries(main, core, graphs, store, plain, queries, tag, oracle_too):
+    """The out-of-core engine and batch engine against the in-memory
+    engine (and the DFS oracle) as sets of rows."""
+    eng = core.SubgraphQueryEngine(store, enumerator="device")
+    singles = []
+    for k, q in enumerate(queries):
+        (emb, st), wall = synced_s(lambda: main.run(
+            "ooc_query", lambda: eng.query(q)))
+        want = plain.query(q)[0]
+        if emb_set(emb) != emb_set(want) or emb.shape != want.shape:
+            raise AssertionError(f"{tag} query {k}: ooc != in-memory engine")
+        if oracle_too and emb_set(emb) != emb_set(oracle(core, graphs, plain, q)):
+            raise AssertionError(f"{tag} query {k}: ooc != DFS oracle")
+        singles.append(emb)
+        log(f"  {tag} query {k}: {emb.shape[0]} embeddings, wall {wall:.3f} "
+            f"s; {ooc_report(st)}")
+    batch = core.BatchQueryEngine(store, enumerator="device")
+    results, wall = synced_s(lambda: main.run(
+        "ooc_batch", lambda: batch.query_batch(queries)))
+    for emb, (got, _) in zip(singles, results):
+        if emb_set(got) != emb_set(emb):
+            raise AssertionError(f"{tag}: ooc batch != ooc engine")
+    t = results[0][1].extras["ooc"]
+    log(f"  {tag} batch of {len(queries)}: wall {wall:.3f} s, one fetch of "
+        f"{t['chunks_read']}/{t['n_chunks']} chunks ({t['fetch_seconds']:.3f} "
+        f"s), rounds {[st.ilgf_iterations for _, st in results]}; cache peak "
+        f"{store.cache.peak_resident_bytes:,} bytes against its "
+        f"{store.cache.budget_bytes:,} budget")
+
+
+def ooc_scale(main, core, graphs, g, queries, tmp):
+    """(c) The out-of-core store at scale: seed, queries, one batch,
+    compaction, queries again."""
+    root = os.path.join(tmp, "ooc")
+    store, write_s = synced_s(lambda: main.run(
+        "ooc_seed", lambda: graphs.OutOfCoreGraphStore.from_graph(
+            g, storage_dir=root, chunk_edges=OOC_CHUNK, degree_cap=64,
+            index=None)))
+    _, rebuild_s = synced_s(lambda: main.run(
+        "ooc_seed", lambda: store.attach_index(core.IncrementalIndex())))
+    disk = sum(os.path.getsize(os.path.join(store._base.path, f))
+               for f in os.listdir(store._base.path))
+    idx = store.index
+    log(f"[12 stream/ooc] (c) OutOfCoreGraphStore.from_graph(chunk_edges="
+        f"{OOC_CHUNK:,}, degree_cap=64): {store.n_chunks} chunks, {disk:,} "
+        f"bytes on disk; sort and write {write_s:.2f} s, streamed index "
+        f"rebuild {rebuild_s:.2f} s ({tuple(idx.counts.shape)} int32 counts, "
+        f"{idx.counts.numel() * 4 / 1e9:.2f} GB on the card, d_max "
+        f"{idx.d_max})")
+    plain = core.SubgraphQueryEngine(g, enumerator="device")
+    ooc_queries(main, core, graphs, store, plain, queries, "ooc", True)
+
+    batch = draw_update_batch(graphs, store, np.random.default_rng(17),
+                              STREAM_RECORDS, DELETE_FRAC)
+    probe_s, index_s = [], []
+    inner = store._lookup
+
+    def timed_lookup(keys):
+        t0 = time.perf_counter()
+        out = inner(keys)
+        probe_s.append(time.perf_counter() - t0)
+        return out
+
+    store._lookup = timed_lookup
+    timed_index(store.index, index_s)
+    try:
+        res, apply_s = synced_s(lambda: main.run(
+            "ooc_apply", lambda: store.apply(batch)))
+    finally:
+        del store._lookup, store.index.apply_batch
+    log(f"  apply of {STREAM_RECORDS:,} records at {DELETE_FRAC:.0%} deletes: "
+        f"+{res.n_inserted} -{res.n_deleted} skipped {res.n_skipped} in "
+        f"{apply_s:.3f} s: chunk probes {sum(probe_s):.3f} s, index "
+        f"maintenance (cni_update) {sum(index_s):.4f} s, overlay and degrees "
+        f"{apply_s - sum(probe_s) - sum(index_s):.3f} s; overlay "
+        f"{store.overlay_edges:,} entries")
+    dead, compact_s = synced_s(store.compact)
+    log(f"  compact(): {dead:,} tombstones reclaimed in {compact_s:.2f} s, "
+        f"generation {store.generation}, {store.n_chunks} chunks")
+    check_scratch(core, store, "ooc")
+    lo, hi, lab = store.alive_edges()
+    g2, build_s = synced_s(lambda: graphs.build_graph(
+        store.n_vertices, store.vlabels, np.stack([lo, hi], axis=1), lab,
+        device="cuda"))
+    del lo, hi, lab
+    log(f"  check graph rebuilt from alive_edges() in {build_s:.1f} s "
+        f"({g2.n_edges:,} edges)")
+    plain2 = core.SubgraphQueryEngine(g2, enumerator="device")
+    ooc_queries(main, core, graphs, store, plain2, queries, "ooc after apply",
+                False)
+    del plain2, g2
+    return store
+
+
+def ooc_service(main, core, graphs, gj, tmp):
+    """(d) Phase 11's join-heavy service config over an out-of-core store,
+    against an in-memory twin serving the same traffic; then a restore."""
+    from repro_torch import serve
+
+    ooc = graphs.OutOfCoreGraphStore.from_graph(
+        gj, storage_dir=os.path.join(tmp, "ooc_join"), chunk_edges=2048,
+        degree_cap=32)
+    mem = graphs.GraphStore.from_graph(gj, degree_cap=32)
+    mem.attach_index(core.IncrementalIndex())
+    directory = os.path.join(tmp, "ckpt")
+    cfg = serve.GraphServiceConfig(
+        max_slots=8, max_query_vertices=8, max_query_labels=8,
+        enumerator="device", plan_queries=True, max_queue_depth=16,
+        tenant_quota=12, checkpoint_every=1)
+    svcs = (serve.GraphQueryService(ooc, dataclasses.replace(
+                cfg, checkpoint_dir=directory)),
+            serve.GraphQueryService(mem, cfg))
+    paths = (("ooc_service", "ooc_service_mutate"),
+             ("ooc_twin", "ooc_twin_mutate"))
+    rng = np.random.default_rng(11)
+    outs = ([], [])
+    t0 = time.perf_counter()
+    for wave in range(OOC_SERVICE_WAVES):
+        graph = mem.snapshot().graph
+        qs = [graphs.random_walk_query(graph, 4 + k % 3, sparse=True,
+                                       seed=5000 + wave * SERVICE_WAVE + k,
+                                       device="cuda")
+              for k in range(SERVICE_WAVE)]
+        gone, new = split_batch(draw_update_batch(
+            graphs, mem, rng, SERVICE_RECORDS, DELETE_FRAC))
+        for svc, (path, mutate), out in zip(svcs, paths, outs):
+            for k, q in enumerate(qs):
+                try:
+                    out.append(("rid", main.run(path, lambda: svc.submit(
+                        q, tenant=f"tenant{k % 2}", priority=k % 2))))
+                except serve.AdmissionRejected as err:
+                    out.append(("rejected", err.rid, err.reason))
+            out.extend(main.run(path, svc.tick))
+            main.run(mutate, lambda: svc.remove_edges(gone))
+            main.run(mutate, lambda: svc.add_edges(new))
+            out.extend(main.run(path, svc.tick))
+    for svc, (path, _), out in zip(svcs, paths, outs):
+        out.extend(main.run(path, svc.run_to_completion))
+    wall = time.perf_counter() - t0
+    (o_out, m_out), (o_svc, m_svc) = outs, svcs
+    if len(o_out) != len(m_out):
+        raise AssertionError("the ooc service and its twin disagree on the "
+                             "outcomes' count")
+    reports, n_done = {}, 0
+    for a, b in zip(o_out, m_out):
+        if len(a) == 3 and not isinstance(a[0], str):
+            (ra, ea, sa), (rb, eb, _) = a, b
+            if ra != rb or not np.array_equal(ea, eb):
+                raise AssertionError(f"ooc service request {ra} != in-memory "
+                                     "twin")
+            rep = sa.extras["ooc"]
+            ep = sa.extras["service"]["epoch"]
+            if ep not in reports or rep["fetches"] > reports[ep]["fetches"]:
+                reports[ep] = rep
+            n_done += 1
+        elif a != b:
+            raise AssertionError(f"ooc service {a} != in-memory twin {b}")
+    m = o_svc.metrics_snapshot()
+    sums = {key: sum(r[key] for r in reports.values()) for key in (
+        "chunks_read", "bytes_read", "cache_hits", "cache_misses")}
+    counters = {key: m[f"repro_ooc_{key}_total"]["series"].get((), 0)
+                for key in sums}
+    log(f"[12 stream/ooc] (d) join-heavy service over an out-of-core store "
+        f"({ooc.n_chunks} chunks of 2,048): {OOC_SERVICE_WAVES * SERVICE_WAVE}"
+        f" requests, {n_done} completed, "
+        f"{sum(o[0] == 'rejected' for o in o_out)} rejected, "
+        f"{OOC_SERVICE_WAVES} batches of {SERVICE_RECORDS} records, in "
+        f"{wall:.3f} s for both services; every outcome equals the in-memory "
+        f"twin's; repro_ooc counters {counters}, hit ratio "
+        f"{m['repro_ooc_cache_hit_ratio']['series'][()]:.4f}")
+    if counters != sums:
+        raise AssertionError(f"repro_ooc counters {counters} != the epochs' "
+                             f"reports {sums}")
+    for svc in svcs:
+        main.run("ooc_service", svc.shutdown)
+    o_svc.wait_for_checkpoints()
+    restored, restore_s = synced_s(lambda: main.run(
+        "ooc_restore", lambda: serve.GraphQueryService.restore(
+            directory, cfg, device="cuda")))
+    rs = restored.store
+    same = all(torch.equal(getattr(rs.index, n), getattr(ooc.index, n))
+               for n in INDEX_STATE)
+    encodes = main.counts[(12, "ooc_restore")]["cni_encode"]
+    log(f"  restore in {restore_s:.3f} s: epoch {rs.epoch} (shut down at "
+        f"{ooc.epoch}), generation {rs.generation} ({ooc.generation}), "
+        f"overlay {rs.overlay_edges}, index bit for bit {same}, cni_encode "
+        f"launches {encodes}")
+    if (rs.epoch, rs.generation) != (ooc.epoch, ooc.generation) or not same \
+            or encodes or not isinstance(rs, graphs.OutOfCoreGraphStore):
+        raise AssertionError("the out-of-core restore is not warm")
+    restored.shutdown()
+
+
+def phase_stream_ooc(main, core, graphs, scale: float):
+    """Phase 12: (a) the stream filter, (b) the graph-database index, (c)
+    the out-of-core store at scale, (d) the out-of-core service."""
+    import shutil
+    import tempfile
+
+    g = scale_graph(graphs, scale)
+    n_rec = g.n_directed_edges
+    edge_file = 16 + 8 * g.n_vertices + 24 * n_rec
+    chunk_dir = 24 * (n_rec // 2) + 16 * g.n_vertices
+    need = max(edge_file, 2 * chunk_dir) + (256 << 20)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        free = shutil.disk_usage(tmp).free
+        log(f"[12 stream/ooc] temporary directory {tmp}: "
+            f"{shutil.disk_usage(tmp)}; the phase needs {need:,} bytes at its "
+            f"peak (the edge file, or two generations during compact)")
+        if free < need:
+            raise AssertionError(f"phase 12 needs {need:,} bytes of disk, the "
+                                 f"temporary directory has {free:,}")
+        queries = [graphs.random_walk_query(g, 10, sparse=False, seed=s,
+                                            device="cuda")
+                   for s in range(3, 3 + OOC_QUERIES)]
+        parts = {}
+        t0 = time.perf_counter()
+        stream_scale(main, core, graphs, g, queries[0], tmp)
+        gj = graphs.random_labeled_graph(8000, 40000, 8, seed=42,
+                                         device="cuda")
+        stream_join(main, core, graphs, gj, tmp)
+        parts["(a) stream"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph_index_phase(main, core, graphs)
+        parts["(b) graph index"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        store = ooc_scale(main, core, graphs, g, queries, tmp)
+        log(f"  (c) peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        del store
+        parts["(c) ooc at scale"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ooc_service(main, core, graphs, gj, tmp)
+        parts["(d) ooc service"] = time.perf_counter() - t0
+    log(f"  phase 12 parts (s): { {k: round(v, 1) for k, v in parts.items()} }")
+
+
+# ---------------------------------------------------------------------------
 # the LM serving path: phase 3's flash_attention and wkv6 checks, phase 10
 # ---------------------------------------------------------------------------
 
@@ -2332,7 +2808,7 @@ def phase_serve(main, lm, arch: str):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                         help="comma-separated phase numbers to run")
     parser.add_argument("--scale", type=float, default=1.0,
                         help="common factor on the scale graph's (and the "
@@ -2389,7 +2865,9 @@ def main(argv=None) -> int:
                     (10, lambda: [phase_serve(main, lm_modules(), arch)
                                   for arch in SERVE_ARCHS]),
                     (11, lambda: phase_service(main, core, graphs, args.scale,
-                                               stores.get("join")))):
+                                               stores.get("join"))),
+                    (12, lambda: phase_stream_ooc(main, core, graphs,
+                                                  args.scale))):
         if num in phases:
             main.phase = num
             t0 = time.perf_counter()
@@ -2420,15 +2898,24 @@ def main(argv=None) -> int:
                     (11, "service_mutate"): ("cni_update",),
                     (11, "replicas"): path + ("cni_update",),
                     (11, "service_scale"): path,
-                    (11, "service_scale_mutate"): ("cni_update",)}
+                    (11, "service_scale_mutate"): ("cni_update",),
+                    (12, "stream"): ("cni_encode", "candidate_filter"),
+                    (12, "graph_index"): ("cni_encode",),
+                    (12, "ooc_seed"): ("cni_encode",),
+                    (12, "ooc_query"): path, (12, "ooc_batch"): path,
+                    (12, "ooc_service"): path,
+                    (12, "ooc_service_mutate"): ("cni_update",),
+                    (12, "ooc_apply"): ("cni_update",)}
         for (num, entry), names in required.items():
             for name in names:
                 if num in phases and main.counts[(num, entry)][name] == 0:
                     raise AssertionError(
                         f"{name} never launched on phase {num}'s {entry} path")
         # a warm restore reads the maintained digests: it encodes nothing
-        if 11 in phases and main.counts[(11, "restore")]["cni_encode"]:
-            raise AssertionError("the service restore launched cni_encode")
+        for num, entry in ((11, "restore"), (12, "ooc_restore")):
+            if num in phases and main.counts[(num, entry)]["cni_encode"]:
+                raise AssertionError(f"phase {num}'s {entry} launched "
+                                     "cni_encode")
     if 3 in phases:
         timings["candidate_filter"] = timings["candidate_filter_exact"]
         kernels = []

@@ -1,5 +1,5 @@
-"""CNI encoding, ILGF filtering, search, the planner and the incremental
-index, ported to PyTorch."""
+"""CNI encoding, ILGF filtering, search, the planner, the incremental
+index, stream filtering and the graph-database index, ported to PyTorch."""
 
 from repro_torch.core.batch_engine import BatchQueryEngine, batched_ilgf_round
 from repro_torch.core.cni import (
@@ -32,16 +32,24 @@ from repro_torch.core.search import (
     greedy_matching_order,
     host_dfs_search,
 )
+from repro_torch.core.graph_index import GraphDatabaseIndex
 from repro_torch.core.stats import GraphStats
+from repro_torch.core.stream import (
+    StreamResult,
+    StreamStats,
+    scan_filter,
+    stream_filter_file,
+)
 
 __all__ = [
-    "SAT64", "BatchQueryEngine", "GraphStats", "IlgfResult",
-    "IncrementalIndex", "IndexSnapshot", "IndexStats", "Plan", "PlanCache",
-    "QueryPlanner", "QueryStats", "ShardedIncrementalIndex",
-    "SubgraphQueryEngine", "batched_ilgf_round", "bfs_join_search",
-    "canonical_form", "cni_from_counts", "cni_log_from_counts",
-    "default_max_p", "device_join_search", "embeddings_equal",
-    "empty_enum_report", "greedy_matching_order", "host_dfs_search", "ilgf",
-    "one_shot_filter", "query_fingerprint", "search_filtered",
-    "store_prefilter",
+    "SAT64", "BatchQueryEngine", "GraphDatabaseIndex", "GraphStats",
+    "IlgfResult", "IncrementalIndex", "IndexSnapshot", "IndexStats", "Plan",
+    "PlanCache", "QueryPlanner", "QueryStats", "ShardedIncrementalIndex",
+    "StreamResult", "StreamStats", "SubgraphQueryEngine",
+    "batched_ilgf_round", "bfs_join_search", "canonical_form",
+    "cni_from_counts", "cni_log_from_counts", "default_max_p",
+    "device_join_search", "embeddings_equal", "empty_enum_report",
+    "greedy_matching_order", "host_dfs_search", "ilgf", "one_shot_filter",
+    "query_fingerprint", "scan_filter", "search_filtered", "store_prefilter",
+    "stream_filter_file",
 ]

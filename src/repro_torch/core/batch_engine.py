@@ -235,12 +235,14 @@ class BatchQueryEngine:
     ``enumerator="device"`` the join's telemetry lands in
     ``stats.extras["enum"]``.
 
-    ``data``: a ``repro_torch`` ``Graph``, ``GraphStore`` or
-    ``GraphSnapshot``, whose graph moves to ``device`` once (``None``
-    means ``"cuda"``); with an incremental index each query's rounds start
-    from its ``store_prefilter`` mask.  ``planner``: an optional
-    ``QueryPlanner`` shared by every query's search.  The out-of-core tier
-    and ``mesh=`` belong to later slices and raise ``NotImplementedError``.
+    ``data``: a ``repro_torch`` ``Graph``, a store or a ``GraphSnapshot``,
+    whose graph moves to ``device`` once (``None`` means ``"cuda"``); with
+    an incremental index each query's rounds start from its
+    ``store_prefilter`` mask.  Over an out-of-core snapshot one chunk fetch
+    covers the union of the batch's prefilter masks, and ``d_max`` is the
+    store's resident bound.  ``planner``: an optional ``QueryPlanner``
+    shared by every query's search.  ``mesh=`` belongs to a later slice
+    and raises ``NotImplementedError``.
     """
 
     def __init__(self, data, *, filter_variant: str = ENGINE_CONFIG.filter_variant,
@@ -255,6 +257,7 @@ class BatchQueryEngine:
         self.data = graph_to(snap.graph, self.device)
         self.epoch = snap.epoch
         self._index = snap.index
+        self._ooc = snap.ooc
         self._host_data = to_host(self.data)  # search re-reads fields often
         self.filter_variant = filter_variant
         self.khop = khop
@@ -262,8 +265,14 @@ class BatchQueryEngine:
         self.search_vertex_cap = search_vertex_cap
         self.max_batch = ENGINE_CONFIG.max_batch if max_batch is None else max_batch
         self.max_iters = max_iters
-        self.d_max = (int(d_max) if d_max is not None
-                      else max(1, max_degree(self.data)))
+        # an out-of-core engine only sees restricted edge sets, so its
+        # digest bound is the full graph's resident one
+        if d_max is not None:
+            self.d_max = int(d_max)
+        elif self._ooc is not None:
+            self.d_max = self._ooc.d_max
+        else:
+            self.d_max = max(1, max_degree(self.data))
         # one planner (one plan cache) across every chunk and batch
         self.planner = planner
         self.enumerator = enumerator
@@ -274,6 +283,9 @@ class BatchQueryEngine:
         # one host copy per query up front: bucketing, digest prep and
         # search all read its fields on the host
         queries = [to_host(q) for q in queries]
+        if self._ooc is not None:
+            return self._query_batch_ooc(queries,
+                                         max_embeddings=max_embeddings)
         results: list = [None] * len(queries)
         buckets: dict[tuple[int, int, int], list[int]] = defaultdict(list)
         for i, q in enumerate(queries):
@@ -293,6 +305,38 @@ class BatchQueryEngine:
                     self._run_chunk(queries, chunk, results, d_max=d_max,
                                     l_pad=l_pad, u_pad=u_pad, max_p=max_p,
                                     max_embeddings=max_embeddings)
+        return results
+
+    def _query_batch_ooc(self, queries, *, max_embeddings):
+        """One chunk fetch for the whole batch, then the in-memory path.
+
+        Each row's fixed point stays inside its own sound prefilter mask,
+        so the fetch over the union covers the batch; an inner engine over
+        the restricted graph, pinned to the full graph's ``d_max``, gives
+        the in-memory results.  Every result carries the fetch's report.
+        """
+        # imported here: incremental imports this module
+        from repro_torch.core.incremental import store_prefilter
+        from repro_torch.graphs.store import GraphSnapshot
+
+        union = torch.zeros(self.data.n_vertices, dtype=torch.bool,
+                            device=self._index.counts.device)
+        digest_cache: dict = {}
+        for q in queries:
+            union |= store_prefilter(self._index, q,
+                                     variant=self.filter_variant,
+                                     digest_cache=digest_cache)
+        restricted, tel = self._ooc.fetch_restricted(union.cpu().numpy())
+        inner = BatchQueryEngine(
+            GraphSnapshot(self.epoch, restricted, self._index),
+            filter_variant=self.filter_variant, khop=self.khop,
+            searcher=self.searcher, search_vertex_cap=self.search_vertex_cap,
+            max_batch=self.max_batch, max_iters=self.max_iters,
+            planner=self.planner, enumerator=self.enumerator,
+            d_max=self.d_max, device=self.device)
+        results = inner.query_batch(queries, max_embeddings=max_embeddings)
+        for _emb, stats in results:
+            stats.extras["ooc"] = tel
         return results
 
     def _round(self, qb, alive, *, l_pad, d_max, max_p):

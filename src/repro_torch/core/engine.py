@@ -2,9 +2,10 @@
 ``repro.core.engine`` for a ``Graph``, a ``GraphStore`` or a
 ``GraphSnapshot``.
 
-Pipeline = (store prefilter) → ILGF fixed point (on the device) →
-compaction (host) → optional k-hop refinement → (planner) → join
-enumeration.  ``search_filtered`` is the post-filter stage on its own.
+Pipeline = (store prefilter) → (out-of-core chunk fetch) → ILGF fixed
+point (on the device) → compaction (host) → optional k-hop refinement →
+(planner) → join enumeration.  ``search_filtered`` is the post-filter
+stage on its own.
 """
 
 from __future__ import annotations
@@ -140,15 +141,18 @@ def search_filtered(
 def check_engine_args(data, mesh, enumerator: str) -> GraphSnapshot:
     """The engines' shared argument checks; returns ``data`` as a snapshot.
 
-    A ``Graph``, ``GraphStore`` or ``GraphSnapshot`` is accepted; an
-    out-of-core snapshot and ``mesh=`` name their ROADMAP items, and the
-    enumerator must be known.
+    A ``Graph``, a store or a ``GraphSnapshot`` is accepted; an
+    out-of-core snapshot needs its store's incremental index, ``mesh=``
+    names its ROADMAP item, and the enumerator must be known.
     """
     snap = as_snapshot(data)
-    if snap.ooc is not None:
-        raise later_slice("an out-of-core snapshot", "10 (out-of-core tier)")
     if mesh is not None:
         raise later_slice("mesh=", "11 (multi-device)")
+    if snap.ooc is not None and snap.index is None:
+        raise ValueError(
+            "OutOfCoreGraphStore needs an attached incremental index — its "
+            "digests drive the chunk prefilter (construct the store with "
+            "index='auto')")
     if enumerator not in ("host", "device"):
         raise ValueError(
             f"enumerator must be 'host' or 'device', got {enumerator!r}"
@@ -171,8 +175,12 @@ class SubgraphQueryEngine:
     count → scan → emit join, with its telemetry in
     ``stats.extras["enum"]``.
 
-    ``mesh=`` and an out-of-core snapshot belong to later slices of the
-    port and raise ``NotImplementedError``.
+    An out-of-core store or snapshot (``graphs/ooc.py``) prefilters from
+    the index first, fetches only the edge chunks the mask touches, and
+    runs ILGF and the search on that restricted graph with the store's
+    resident ``d_max``; the chunk-IO telemetry lands in
+    ``stats.extras["ooc"]``.  ``mesh=`` belongs to a later slice of the
+    port and raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -194,6 +202,7 @@ class SubgraphQueryEngine:
         self.data = graph_to(snap.graph, self.device)
         self.epoch = snap.epoch
         self._index = snap.index
+        self._ooc = snap.ooc
         self._host_data = to_host(self.data)  # search re-reads fields often
         self.filter_variant = filter_variant
         self.khop = khop
@@ -208,7 +217,8 @@ class SubgraphQueryEngine:
         With an active tracer each call opens one ``query`` span with
         ``query.filter`` / ``query.enumerate`` children.
         """
-        with obsv.span("query", n_vertices=self.data.n_vertices):
+        with obsv.span("query", n_vertices=self.data.n_vertices,
+                       ooc=self._ooc is not None):
             stats = QueryStats(vertices_before=self.data.n_vertices)
             t0 = time.perf_counter()
             alive0 = None
@@ -220,8 +230,16 @@ class SubgraphQueryEngine:
                 alive0 = store_prefilter(self._index, q,
                                          variant=self.filter_variant)
                 stats.extras["store_prefilter_alive"] = int(alive0.sum())
-            res = ilgf(self.data, q, variant=self.filter_variant,
-                       alive0=alive0)
+            data, host_data = self.data, self._host_data
+            if self._ooc is not None:
+                # the digests prefilter first; only the chunks the mask
+                # touches are read (one copy of the mask to the host, C5)
+                restricted, stats.extras["ooc"] = self._ooc.fetch_restricted(
+                    alive0.cpu().numpy())
+                data = graph_to(restricted, self.device)
+                host_data = to_host(data)
+            res = ilgf(data, q, variant=self.filter_variant, alive0=alive0,
+                       d_max=self._ooc.d_max if self._ooc is not None else None)
             alive = res.alive.cpu().numpy()
             candidates = res.candidates.cpu().numpy()
             stats.ilgf_iterations = res.iterations
@@ -230,7 +248,7 @@ class SubgraphQueryEngine:
                          iterations=stats.ilgf_iterations,
                          alive=int(alive.sum()))
             emb = search_filtered(
-                self._host_data, q, alive, candidates, stats,
+                host_data, q, alive, candidates, stats,
                 khop=self.khop,
                 searcher=self.searcher,
                 search_vertex_cap=self.search_vertex_cap,

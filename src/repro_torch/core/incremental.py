@@ -50,7 +50,7 @@ from repro_torch.checkpoint import CheckpointError
 from repro_torch.core import filters as flt
 from repro_torch.core.batch_engine import ceil_pow2, prepare_padded_query
 from repro_torch.core.cni import LOG_SAT64, SAT64, default_max_p
-from repro_torch.core.stats import GraphStats
+from repro_torch.core.stats import GraphStats, alive_edge_blocks
 from repro_torch.graphs.csr import as_numpy
 from repro_torch.device import resolve_device
 from repro_torch.graphs.store import EdgeBatch, GraphStore, later_slice
@@ -118,8 +118,9 @@ class IncrementalIndex:
     # -- (re)build -----------------------------------------------------------
 
     def rebuild(self, store: GraphStore) -> None:
-        """Full build from the store's current edge set: one scatter of
-        2|E| records into (V, Lu) counts, then ``cni_encode``."""
+        """Full build from the store's current edge set: scatters of its
+        2|E| records into (V, Lu) counts, block by block, then
+        ``cni_encode``."""
         self.device = store.device  # the store alone decides where
         self.universe = np.unique(store.vlabels)
         self.vlabels = store.vlabels
@@ -134,16 +135,19 @@ class IncrementalIndex:
         self.max_p = default_max_p(self.d_max, lu)
         self._col_of = np.searchsorted(self.universe, self.vlabels)
         counts = torch.zeros(v * lu, dtype=torch.int32, device=self.device)
-        lo, hi, _ = store.alive_edges()
-        if lo.size:
-            col = torch.as_tensor(self._col_of, device=self.device)
-            lo_t = torch.as_tensor(lo, device=self.device)
-            hi_t = torch.as_tensor(hi, device=self.device)
-            flat = torch.cat([lo_t * lu + col[hi_t], hi_t * lu + col[lo_t]])
-            del lo_t, hi_t
-            counts.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.int32,
-                                                  device=self.device))
-            del flat
+        col = torch.as_tensor(self._col_of, device=self.device)
+        # one index_add_ per block of the store's alive edges: an
+        # out-of-core store streams its chunks, and the integer sums equal
+        # a one-shot build's
+        for lo, hi, _ in alive_edge_blocks(store):
+            if lo.size:
+                lo_t = torch.as_tensor(lo, device=self.device)
+                hi_t = torch.as_tensor(hi, device=self.device)
+                flat = torch.cat([lo_t * lu + col[hi_t], hi_t * lu + col[lo_t]])
+                del lo_t, hi_t
+                counts.index_add_(0, flat, torch.ones(
+                    flat.shape, dtype=torch.int32, device=self.device))
+                del flat
         self.counts = counts.view(v, lu)
         self._encode_all()
         # the planner's statistics ride along, rebuilt with the counts

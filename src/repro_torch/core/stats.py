@@ -30,6 +30,14 @@ from repro_torch.checkpoint import CheckpointError
 from repro_torch.graphs.csr import as_numpy
 
 
+def alive_edge_blocks(store):
+    """A store's alive edges as ``(lo, hi, lab)`` blocks: the store's
+    ``iter_alive_edge_chunks`` when it has one (the out-of-core store, whose
+    table stays on disk), else ``alive_edges()`` as one block."""
+    chunks = getattr(store, "iter_alive_edge_chunks", None)
+    return chunks() if chunks is not None else [store.alive_edges()]
+
+
 def _pair_counts(col_a: np.ndarray, col_b: np.ndarray, lu: int) -> np.ndarray:
     """(Lu, Lu) int64 count of (col_a[i], col_b[i]) pairs."""
     flat = np.bincount(col_a * lu + col_b, minlength=lu * lu)
@@ -76,19 +84,26 @@ class GraphStats:
 
     @classmethod
     def from_store(cls, store, *, rebucket_frac: float = 0.25) -> "GraphStats":
-        """Scratch build from a store's alive edge set, at its epoch."""
+        """Scratch build from a store's alive edge set, at its epoch,
+        streamed block by block (``alive_edge_blocks``): an out-of-core
+        store's edge table is never materialised, and the integer sums
+        equal a one-shot build's."""
         vlab = np.asarray(store.vlabels)
         universe = np.unique(vlab)
         col = np.searchsorted(universe, vlab)
         lu = int(universe.size)
         hist = np.bincount(col, minlength=lu).astype(np.int64)
-        lo, hi, _ = store.alive_edges()
-        c_lo, c_hi = col[lo], col[hi]
-        pair = _pair_counts(c_lo, c_hi, lu) + _pair_counts(c_hi, c_lo, lu)
-        deg_sum = np.bincount(np.concatenate([c_lo, c_hi]),
-                              minlength=lu).astype(np.int64)
+        pair = np.zeros((lu, lu), dtype=np.int64)
+        deg_sum = np.zeros(lu, dtype=np.int64)
+        n_edges = 0
+        for lo, hi, _ in alive_edge_blocks(store):
+            c_lo, c_hi = col[lo], col[hi]
+            pair += _pair_counts(c_lo, c_hi, lu) + _pair_counts(c_hi, c_lo, lu)
+            deg_sum += np.bincount(c_lo, minlength=lu)
+            deg_sum += np.bincount(c_hi, minlength=lu)
+            n_edges += int(lo.size)
         return cls(universe, hist, deg_sum, pair, n_vertices=int(vlab.size),
-                   n_edges=int(lo.size), version=int(store.epoch),
+                   n_edges=n_edges, version=int(store.epoch),
                    rebucket_frac=rebucket_frac)
 
     def copy(self) -> "GraphStats":

@@ -10,12 +10,24 @@ from repro_torch.graphs.csr import (
     to_host,
 )
 from repro_torch.graphs.datasets import PAPER_DATASETS, paper_dataset
+from repro_torch.graphs.io import (
+    ChunkDirWriter,
+    ChunkIOError,
+    iter_update_batches,
+    load_manifest,
+    read_chunk,
+    read_edge_file,
+    stream_edge_chunks,
+    write_chunk_dir,
+    write_edge_file,
+)
 from repro_torch.graphs.generators import (
     power_law_graph,
     random_labeled_graph,
     random_update_batches,
     random_walk_query,
 )
+from repro_torch.graphs.ooc import ChunkCache, OocSnapshot, OutOfCoreGraphStore
 from repro_torch.graphs.store import (
     ApplyResult,
     EdgeBatch,
@@ -28,10 +40,13 @@ from repro_torch.graphs.store import (
 )
 
 __all__ = [
-    "ApplyResult", "EdgeBatch", "Graph", "GraphSnapshot", "GraphStore",
-    "PAPER_DATASETS", "ShardedGraphStore", "StoreStats", "as_numpy",
-    "as_snapshot", "build_graph", "graph_from_numpy", "graph_to",
-    "induced_subgraph", "make_edge_batch", "max_degree", "paper_dataset",
+    "ApplyResult", "ChunkCache", "ChunkDirWriter", "ChunkIOError",
+    "EdgeBatch", "Graph", "GraphSnapshot", "GraphStore", "OocSnapshot",
+    "OutOfCoreGraphStore", "PAPER_DATASETS", "ShardedGraphStore",
+    "StoreStats", "as_numpy", "as_snapshot", "build_graph",
+    "graph_from_numpy", "graph_to", "induced_subgraph", "iter_update_batches",
+    "load_manifest", "make_edge_batch", "max_degree", "paper_dataset",
     "power_law_graph", "random_labeled_graph", "random_update_batches",
-    "random_walk_query", "symmetrize", "to_host",
+    "random_walk_query", "read_chunk", "read_edge_file", "stream_edge_chunks",
+    "symmetrize", "to_host", "write_chunk_dir", "write_edge_file",
 ]

@@ -112,9 +112,10 @@ class GraphSnapshot(NamedTuple):
 
     ``graph`` is a port ``Graph`` on the store's device; ``index`` is a
     frozen ``core.incremental.IndexSnapshot`` when an incremental index is
-    attached, else None.  ``ooc`` stands for the reference's out-of-core
-    handle: no store of this package fills it yet, and the engines refuse
-    a snapshot that carries one.
+    attached, else None.  ``ooc`` is filled by ``OutOfCoreGraphStore``
+    alone: a ``graphs.ooc.OocSnapshot`` handle over the epoch's on-disk
+    generation, whose ``graph`` then holds the labels and no edges (the
+    engines fetch the edges a query's prefilter touches).
     """
 
     epoch: int
@@ -145,8 +146,9 @@ class BaseGraphStore:
     """Shared store machinery: vertex universe, epochs, snapshot cache and
     pins, degrees, the index listener, and batch validation.
 
-    Concrete stores implement the edge table: ``_lookup`` (row of each
-    key, -1 when absent), ``_apply_planned``, ``compact``, ``alive_edges``,
+    Concrete stores implement the edge table: ``_lookup`` (a probe of
+    each key: its row, -1 when absent, for ``GraphStore``), ``_row_alive``
+    of a probe, ``_apply_planned``, ``compact``, ``alive_edges``,
     ``n_edges`` and ``_n_edges_dead``.
     """
 

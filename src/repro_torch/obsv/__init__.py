@@ -21,6 +21,7 @@ from repro_torch.obsv.reports import (
     BatchReport,
     EnumLevel,
     EnumReport,
+    OocReport,
     PlanReport,
     Report,
     ServiceReport,
@@ -43,8 +44,8 @@ from repro_torch.obsv.trace import (
 
 __all__ = [
     "NOOP_SPAN", "SCHEMA_VERSION", "BatchReport", "Counter", "EnumLevel",
-    "EnumReport", "Gauge", "Histogram", "MetricsRegistry", "PlanReport",
-    "Report", "ServiceReport", "Span", "Tracer", "activate", "enabled", "end",
-    "get_tracer", "parse_prometheus", "set_tracer", "span", "span_at",
-    "start_detached", "tracing", "validate_extras",
+    "EnumReport", "Gauge", "Histogram", "MetricsRegistry", "OocReport",
+    "PlanReport", "Report", "ServiceReport", "Span", "Tracer", "activate",
+    "enabled", "end", "get_tracer", "parse_prometheus", "set_tracer", "span",
+    "span_at", "start_detached", "tracing", "validate_extras",
 ]

@@ -1,7 +1,6 @@
 """Typed telemetry reports (the port's copy of the reference's
-``PlanReport``/``EnumReport``/``EnumLevel``/``BatchReport``/``ServiceReport``
-schema, cut to what this package fills: the out-of-core ``OocReport`` comes
-with that tier).
+``PlanReport``/``EnumReport``/``EnumLevel``/``OocReport``/``BatchReport``/
+``ServiceReport`` schema).
 
 Each report is a ``Mapping``, so ``report["device_rounds"]`` and
 ``dict(report)`` behave as the plain dicts the searchers fill; ``from_dict``
@@ -223,6 +222,44 @@ class EnumReport(Report):
 
 
 @dataclass(eq=False)
+class OocReport(Report):
+    """``stats.extras["ooc"]`` — chunk-IO telemetry of one fetch, or of an
+    epoch's fetches summed by the service.
+
+    ``fetches`` counts the ``fetch_restricted`` calls in the report.
+    ``n_chunks``, ``peak_resident_bytes``, ``resident_budget_bytes`` and
+    ``partial`` are point-in-time gauges; the other fields sum.
+    ``partial=True`` marks a report from the ``ChunkIOError`` path: its
+    counters cover the work done before the fault.
+    """
+
+    chunks_read: int
+    cache_hits: int
+    cache_misses: int
+    bytes_read: int
+    n_chunks: int
+    edges_fetched: int
+    peak_resident_bytes: int
+    resident_budget_bytes: int
+    fetch_seconds: float
+    fetches: int = 1
+    partial: bool = False
+
+    GAUGES = ("n_chunks", "peak_resident_bytes", "resident_budget_bytes",
+              "partial")
+
+    def merge(self, other: Mapping) -> "OocReport":
+        """This report with another fetch's added in."""
+        d = self.to_dict()
+        for k, v in other.items():
+            if k in self.GAUGES:
+                d[k] = bool(d[k] or v) if k == "partial" else v
+            else:
+                d[k] = d.get(k, 0) + v
+        return OocReport.from_dict(d)
+
+
+@dataclass(eq=False)
 class BatchReport(Report):
     """``stats.extras["batch"]`` — shape-bucket placement of one query."""
 
@@ -263,6 +300,7 @@ class ServiceReport(Report):
 REPORT_TYPES: dict[str, type] = {
     "plan": PlanReport,
     "enum": EnumReport,
+    "ooc": OocReport,
     "batch": BatchReport,
     "service": ServiceReport,
 }

@@ -35,11 +35,18 @@ A fixed pool of ``max_slots`` query slots with static padded shapes
   ``GraphServiceConfig(checkpoint_dir=...)`` the store and its index
   persist every ``checkpoint_every`` epochs; ``GraphQueryService.restore``
   warm-starts a service from the newest committed snapshot.
+* **Out-of-core stores** (``graphs/ooc.py``): an admission widens its
+  pinned epoch's restricted graph to cover the slot's prefilter mask (one
+  chunk fetch when the mask adds vertices), and the rounds and the search
+  read that graph.  The fetches' ``OocReport``s add up per epoch, feed the
+  ``repro_ooc_*`` counters and ride on results and cancellations; a
+  ``ChunkIOError`` fails its request closed (recorded in ``failures``,
+  the pin released) and propagates.
 
 A service built from a ``Graph`` or a snapshot runs on ``device``
 (``None`` means ``"cuda"``); a store-backed one runs where its store does.
-``GraphServiceConfig.mesh`` and an out-of-core snapshot belong to later
-slices of the port and raise ``NotImplementedError`` naming their items.
+``GraphServiceConfig.mesh`` belongs to a later slice of the port and
+raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from repro_torch.core.incremental import store_prefilter
 from repro_torch.core.planner import QueryPlanner
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph, graph_to, max_degree, to_host
+from repro_torch.graphs.io import ChunkIOError
 from repro_torch.graphs.store import (
     BaseGraphStore,
     GraphSnapshot,
@@ -158,9 +166,9 @@ class _Request:
 
 
 class CancelledRequest(NamedTuple):
-    """A request the service gave up on, reported.  ``ooc`` is the
-    reference's out-of-core telemetry field: None until that tier is
-    ported."""
+    """A request the service gave up on, reported.  ``ooc``: the pinned
+    epoch's accumulated chunk-IO ``OocReport`` for a request cancelled
+    after admission over an out-of-core store; None otherwise."""
 
     rid: int
     reason: str
@@ -169,9 +177,9 @@ class CancelledRequest(NamedTuple):
 
 
 class FailedRequest(NamedTuple):
-    """A request that died on a fail-closed path (the reference's
-    out-of-core chunk reads; none of the port's paths fails a request
-    yet)."""
+    """A request that died on the fail-closed path (a ``ChunkIOError`` of
+    an out-of-core fetch), recorded before the error propagates, with its
+    queue wait and the fetch's partial ``OocReport``."""
 
     rid: int
     reason: str
@@ -200,11 +208,14 @@ class GraphQueryService:
             data if isinstance(data, BaseGraphStore) else None)
         snap = as_snapshot(data)
         self.cfg = cfg or GraphServiceConfig()
-        if snap.ooc is not None:
-            raise later_slice("a service over an out-of-core snapshot",
-                              "10 (out-of-core tier)")
         if self.cfg.mesh is not None:
             raise later_slice("GraphServiceConfig.mesh", "11 (multi-device)")
+        self._ooc = snap.ooc
+        if self._ooc is not None and snap.index is None:
+            raise ValueError(
+                "OutOfCoreGraphStore needs an attached incremental index — "
+                "its digests drive the chunk prefilter (construct the store "
+                "with index='auto')")
         if self.store is not None:
             self.device = self.store.device
             if device is not None and torch.device(device).type != \
@@ -218,6 +229,12 @@ class GraphQueryService:
         self.data = snap.graph
         if self.store is not None and self.store.degree_cap is not None:
             self.d_max = int(self.store.degree_cap)
+        elif self._ooc is not None:
+            # an out-of-core snapshot's graph has no edges; the resident
+            # degrees carry the true bound
+            self.d_max = self._ooc.d_max
+            if self.store is not None:
+                self.store.degree_cap = self.d_max
         else:
             self.d_max = max(1, max_degree(snap.graph))
             if self.store is not None:
@@ -251,6 +268,11 @@ class GraphQueryService:
         self.failures: list[FailedRequest] = []
         self.rejections: list[RejectedRequest] = []
         self.expired: list[CancelledRequest] = []
+        # out-of-core bookkeeping by pinned epoch: the union of the
+        # admitted slots' prefilter masks (the restricted graph covers all
+        # of them) and the accumulated fetch telemetry
+        self._ooc_cover: dict[int, np.ndarray] = {}
+        self._ooc_tel: dict[int, obsv.OocReport] = {}
         # always-on service metrics (host-side dict/bisect updates), with
         # the reference's names; scrape via ``metrics_text()``
         self.metrics = obsv.MetricsRegistry()
@@ -296,17 +318,19 @@ class GraphQueryService:
         )
         self._m_ckpts = m.counter(
             "repro_service_checkpoints_total", "Durable snapshots written")
-        # the reference's out-of-core families, registered so a scrape
-        # reads the same families from either package; they stay 0 until
-        # the out-of-core tier (ROADMAP A10) feeds them
-        m.counter("repro_ooc_chunks_read_total",
-                  "Chunk accesses during restricted fetches")
-        m.counter("repro_ooc_bytes_read_total", "Bytes read from chunk files")
-        m.counter("repro_ooc_cache_hits_total", "Chunk-cache hits")
-        m.counter("repro_ooc_cache_misses_total",
-                  "Chunk-cache misses (disk reads)")
-        m.gauge("repro_ooc_cache_hit_ratio",
-                "Lifetime chunk-cache hit ratio of the backing store")
+        # chunk IO of the out-of-core fetches (0 over an in-memory store)
+        self._m_ooc_chunks = m.counter(
+            "repro_ooc_chunks_read_total",
+            "Chunk accesses during restricted fetches")
+        self._m_ooc_bytes = m.counter(
+            "repro_ooc_bytes_read_total", "Bytes read from chunk files")
+        self._m_ooc_hits = m.counter(
+            "repro_ooc_cache_hits_total", "Chunk-cache hits")
+        self._m_ooc_misses = m.counter(
+            "repro_ooc_cache_misses_total", "Chunk-cache misses (disk reads)")
+        self._m_hit_ratio = m.gauge(
+            "repro_ooc_cache_hit_ratio",
+            "Lifetime chunk-cache hit ratio of the backing store")
         self._m_rss = m.gauge(
             "repro_process_peak_rss_bytes",
             "Host-level canary: process peak resident set size",
@@ -336,19 +360,21 @@ class GraphQueryService:
 
     @classmethod
     def restore(cls, directory: str, cfg: "GraphServiceConfig | None" = None,
-                *, device=None) -> "GraphQueryService":
+                *, storage_dir: str | None = None,
+                device=None) -> "GraphQueryService":
         """Warm-start a service from the newest durable snapshot.
 
         Rebuilds the store, its incremental index and the planner stats
         from the latest committed step under ``directory``, on ``device``
         (``None`` means ``"cuda"``): no index rebuild, same epoch, same
-        digests.  Raises ``CheckpointError`` when the directory holds no
-        committed snapshot or the snapshot fails validation.  Unless
-        ``cfg`` says otherwise, the restored service keeps checkpointing
-        into the same directory.
+        digests.  ``storage_dir`` relocates an out-of-core snapshot's
+        chunk-directory root.  Raises ``CheckpointError`` when the
+        directory holds no committed snapshot or the snapshot fails
+        validation.  Unless ``cfg`` says otherwise, the restored service
+        keeps checkpointing into the same directory.
         """
         _, store = ServiceCheckpointer(directory).restore_latest(
-            device=device)
+            storage_dir=storage_dir, device=device)
         if store is None:
             raise CheckpointError(
                 f"{directory} holds no committed service snapshot")
@@ -383,6 +409,38 @@ class GraphQueryService:
         for ep in list(self._epochs):
             if ep not in pinned and ep != self.epoch:
                 self._epochs.pop(ep)
+        for d in (self._ooc_cover, self._ooc_tel):
+            for ep in list(d):
+                if ep not in self._epochs:
+                    del d[ep]
+
+    def _ensure_ooc_cover(self, epoch: int, alive_row: np.ndarray) -> None:
+        """Grow the epoch's restricted graph to cover one more seed mask.
+
+        An out-of-core epoch's cached graph holds the edges among the union
+        of the seeds admitted so far.  A slot's alive mask only shrinks
+        inside its seed, and every round masks counts by alive at both
+        endpoints, so a wider graph gives every earlier slot the same
+        rounds.  A refetch replaces the entry; its telemetry adds to the
+        epoch's report and the ``repro_ooc_*`` counters.
+        """
+        entry = self._epochs[epoch]
+        cover = self._ooc_cover.get(epoch)
+        if cover is not None and not np.any(alive_row & ~cover):
+            return
+        new_cover = alive_row.copy() if cover is None else (cover | alive_row)
+        restricted, tel = entry.snapshot.ooc.fetch_restricted(new_cover)
+        self._ooc_cover[epoch] = new_cover
+        agg = self._ooc_tel.get(epoch)
+        self._ooc_tel[epoch] = tel if agg is None else agg.merge(tel)
+        self._m_ooc_chunks.inc(tel.chunks_read)
+        self._m_ooc_bytes.inc(tel.bytes_read)
+        self._m_ooc_hits.inc(tel.cache_hits)
+        self._m_ooc_misses.inc(tel.cache_misses)
+        restricted = graph_to(restricted, self.device)
+        self._epochs[epoch] = _EpochEntry(
+            snapshot=entry.snapshot._replace(graph=restricted),
+            host_graph=to_host(restricted))
 
     # -- public API ----------------------------------------------------------
 
@@ -598,8 +656,10 @@ class GraphQueryService:
         reason = ("shutdown drain exhausted" if drain
                   else "shutdown before completion")
         for req in [r for r in self.active if r is not None]:
-            cancelled.append(CancelledRequest(req.rid, reason,
-                                              now - req.submitted_at))
+            # the IO done on the request's behalf rides along
+            cancelled.append(CancelledRequest(
+                req.rid, reason, now - req.submitted_at,
+                ooc=self._ooc_tel.get(req.epoch)))
             if req.span is not None:
                 req.span.set_attrs(cancelled=True)
                 obsv.end(req.span)
@@ -630,6 +690,10 @@ class GraphQueryService:
     def _refresh_gauges(self) -> None:
         self._m_active.set(self.n_active)
         self._m_queue_depth.set(len(self.queue))
+        if self._ooc is not None:
+            cache = self._ooc.cache
+            acc = cache.hits + cache.misses
+            self._m_hit_ratio.set(cache.hits / acc if acc else 0.0)
         try:
             import resource
 
@@ -687,7 +751,8 @@ class GraphQueryService:
                 req = self._pick_queued()
                 req.slot = slot
                 now = time.perf_counter()
-                self._m_queue_wait.observe(now - req.submitted_at)
+                queue_s = now - req.submitted_at
+                self._m_queue_wait.observe(queue_s)
                 self._m_admitted.inc()
                 # one detached root span per request, open across ticks
                 # until finalize or cancel: the whole lifetime lands in one
@@ -702,11 +767,15 @@ class GraphQueryService:
                     req.epoch = entry.snapshot.epoch
                     admit_span.set_attrs(epoch=req.epoch)
                     self.active[slot] = req
-                    self._load_slot(slot, req, entry)
+                    self._load_slot(slot, req, entry, queue_s)
 
-    def _load_slot(self, slot: int, req: _Request, entry: _EpochEntry):
+    def _load_slot(self, slot: int, req: _Request, entry: _EpochEntry,
+                   queue_s: float):
         """Write the request's padded digest rows and starting alive mask
-        into the slot tensors."""
+        into the slot tensors.  Over an out-of-core epoch the mask first
+        widens the epoch's restricted graph; a ``ChunkIOError`` there is
+        recorded in ``failures``, frees the slot (releasing its epoch pin)
+        and propagates, and the service stays usable."""
         dev = self.device
         ords, counts, digest, mnd = prepare_padded_query(
             req.query, entry.host_graph.vlabels, self.d_max, self.max_p,
@@ -718,6 +787,22 @@ class GraphQueryService:
             alive_row &= store_prefilter(
                 entry.snapshot.index, req.query,
                 variant=self.cfg.filter_variant).to(dev)
+        if entry.snapshot.ooc is not None:
+            try:
+                self._ensure_ooc_cover(req.epoch, alive_row.cpu().numpy())
+            except ChunkIOError as err:
+                tel = getattr(err, "tel", None)
+                prior = self._ooc_tel.get(req.epoch)
+                if prior is not None:
+                    tel = prior if tel is None else prior.merge(tel)
+                self.failures.append(FailedRequest(req.rid, str(err), queue_s,
+                                                   ooc=tel))
+                self._m_requests.inc(1, status="failed")
+                if req.span is not None:
+                    req.span.set_attrs(failed=True)
+                    obsv.end(req.span)
+                self._free(slot)
+                raise
         self._ords[slot] = ords_t
         self._counts[slot] = torch.as_tensor(counts, device=dev)
         for acc, row in zip(self._digest, digest):
@@ -745,6 +830,9 @@ class GraphQueryService:
             priority=req.priority,
             deadline_missed=deadline_missed,
         ).validate()
+        if req.epoch in self._ooc_tel:
+            # the epoch's accumulated report (never mutated in place)
+            stats.extras["ooc"] = self._ooc_tel[req.epoch]
         t0 = time.perf_counter()
         with obsv.activate(req.span), \
                 obsv.span("service.finalize", rid=req.rid, rounds=req.rounds):

@@ -6,7 +6,9 @@ to the checkpoint substrate (``checkpoint/ckpt.py``): one checkpoint step
 per saved store epoch, holding
 
 * the store's logical state (``checkpoint_state()``: the alive canonical
-  edges and the vertex labels), and
+  edges and the vertex labels of an in-memory store; the resident overlay
+  and a ``(storage_root, generation)`` reference for the out-of-core
+  store, whose chunk files are already durable), and
 * the incremental index's maintained state (counts, degrees, exact and log
   digests) with the planner's ``GraphStats`` beside it, so a restore is
   warm: no rebuild and no ``cni_encode``, and the first admitted query
@@ -21,22 +23,24 @@ the port.
 
 Every restore checks the leaves against the manifest and the parts'
 metas against each other (``leaf_keys``, the store kind, the index type,
-the index epoch against the store epoch) and raises ``CheckpointError``
-on a disagreement.  The out-of-core and sharded store kinds belong to later
-slices of the port and raise ``NotImplementedError`` naming their items.
+the index epoch against the store epoch, the out-of-core generation's
+existence) and raises ``CheckpointError`` on a disagreement.  The sharded
+store kind belongs to a later slice of the port and raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
 
 from repro_torch.checkpoint import CheckpointError, CheckpointManager
 from repro_torch.core.incremental import IncrementalIndex
+from repro_torch.graphs.ooc import OutOfCoreGraphStore
 from repro_torch.graphs.store import GraphStore, later_slice
 
 SCHEMA_VERSION = 1
 
 # store kinds and index types a snapshot may name, and the later slices
 # that bring the ones the port lacks
-_LATER_STORES = {"ooc": "10 (out-of-core tier)", "sharded": "11 (multi-device)"}
+_LATER_STORES = {"sharded": "11 (multi-device)"}
 _LATER_INDEXES = {"ShardedIncrementalIndex": "11 (multi-device)"}
 
 
@@ -82,10 +86,12 @@ class ServiceCheckpointer:
 
     # -- read side -----------------------------------------------------------
 
-    def restore_latest(self, *, device=None):
+    def restore_latest(self, *, storage_dir: str | None = None, device=None):
         """``(step, store)`` rebuilt from the newest committed snapshot, the
         store and its index on ``device`` (``None`` means ``"cuda"``);
-        ``(None, None)`` when the directory holds no committed step."""
+        ``(None, None)`` when the directory holds no committed step.
+        ``storage_dir`` overrides an out-of-core snapshot's recorded
+        chunk-directory root."""
         step, leaf_list, manifest = self.manager.load_latest_leaves()
         if step is None:
             return None, None
@@ -105,11 +111,16 @@ class ServiceCheckpointer:
         if kind in _LATER_STORES:
             raise later_slice(f"restoring a {kind!r} store snapshot",
                               _LATER_STORES[kind])
-        if kind != "graph":
+        if kind == "graph":
+            store = GraphStore.from_checkpoint_state(
+                _part(leaves, "store/"), store_meta, device=device)
+        elif kind == "ooc":
+            store = OutOfCoreGraphStore.from_checkpoint_state(
+                _part(leaves, "store/"), store_meta, storage_dir=storage_dir,
+                device=device)
+        else:
             raise CheckpointError(
                 f"service snapshot has unknown store kind {kind!r}")
-        store = GraphStore.from_checkpoint_state(
-            _part(leaves, "store/"), store_meta, device=device)
         idx_meta = meta.get("index")
         if idx_meta is not None:
             itype = idx_meta.get("type")
@@ -125,6 +136,10 @@ class ServiceCheckpointer:
                 store.attach_index(idx, rebuild=False)
             except ValueError as err:  # epoch disagreement: torn snapshot
                 raise CheckpointError(str(err)) from err
+        elif kind == "ooc":
+            # the out-of-core query path needs resident digests: a store
+            # saved without an index gets a fresh one (a cold rebuild)
+            store.attach_index(IncrementalIndex())
         return int(step), store
 
 

@@ -235,7 +235,7 @@ def test_empty_batch_and_later_slices_raise():
     with pytest.raises(NotImplementedError, match="item 11"):
         BatchQueryEngine(ShardedGraphStore.from_graph(port(g), n_shards=2),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="incremental index"):
         BatchQueryEngine(GraphSnapshot(0, port(g), None, ooc=object()),
                          device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):

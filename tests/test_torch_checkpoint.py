@@ -14,8 +14,8 @@
   the next ``save`` and through the service.
 * A snapshot directory the reference wrote restores in the port to an
   index equal to the port's scratch rebuild.
-* The out-of-core and sharded store kinds raise ``NotImplementedError``
-  naming their ROADMAP items.
+* The sharded store kind raises ``NotImplementedError`` naming its
+  ROADMAP item; an in-memory snapshot relabelled out-of-core fails closed.
 """
 
 import json
@@ -533,12 +533,17 @@ class TestFailClosed:
             store.attach_index(IncrementalIndex(), rebuild=False)
 
 
-@pytest.mark.parametrize("kind,item", [("ooc", "item 10"),
-                                       ("sharded", "item 11")])
-def test_later_slice_store_kinds_raise(tmp_path, kind, item):
+@pytest.mark.parametrize("kind,error,match", [
+    ("ooc", CheckpointError, "missing leaf"),
+    ("sharded", NotImplementedError, "item 11"),
+], ids=["ooc", "sharded"])
+def test_later_slice_store_kinds_raise(tmp_path, kind, error, match):
+    """The sharded kind names its ROADMAP item; the out-of-core kind is
+    ported, and an in-memory snapshot relabelled ``ooc`` lacks its overlay
+    leaves, so it fails closed."""
     d, step_dir = _committed_service_dir(tmp_path)
     _edit_manifest(step_dir, lambda m: m["store"].__setitem__("kind", kind))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         ServiceCheckpointer(str(d)).restore_latest(device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         ShardedGraphStore.from_checkpoint_state({}, {})

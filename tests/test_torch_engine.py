@@ -150,13 +150,13 @@ def test_later_slices_raise(case, slice_item):
 
 
 def test_store_input_raises():
-    """An out-of-core snapshot still raises (item 10), and a store of the
-    reference package is no port input."""
+    """An out-of-core snapshot without its store's index raises, and a
+    store of the reference package is no port input."""
     from repro.graphs import GraphStore
     from repro_torch.graphs import GraphSnapshot
 
     g = random_labeled_graph(50, 120, 3, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="incremental index"):
         SubgraphQueryEngine(GraphSnapshot(0, g, None, ooc=object()),
                             device="cpu")
     with pytest.raises(TypeError, match="repro_torch Graph"):

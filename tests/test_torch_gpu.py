@@ -695,3 +695,117 @@ def test_restore_on_card_equals_cpu_snapshot(cuda, tmp_path):
         assert torch.equal(getattr(idx, name).cpu(), getattr(want, name)), name
     for a, b in zip(restored.store.alive_edges(), svc.store.alive_edges()):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# stream filter, graph-database index and out-of-core store on the card
+# ---------------------------------------------------------------------------
+
+
+def _launches():
+    return {k: v for m in (ops, enc_ops, cf_ops, upd_ops)
+            for k, v in m.launch_counts().items()}
+
+
+@pytest.mark.parametrize("sorted_stream", [True, False])
+def test_stream_on_card_equals_cpu(cuda, tmp_path, sorted_stream):
+    from repro_torch.core import scan_filter, stream_filter_file
+    from repro_torch.graphs import max_degree, write_edge_file
+
+    g = random_labeled_graph(2000, 9000, 6, n_edge_labels=2, seed=5,
+                             device="cpu")
+    q = random_walk_query(g, 6, sparse=True, seed=6, device="cpu")
+    path = str(tmp_path / "g.bin")
+    write_edge_file(path, g, sorted_by_src=sorted_stream)
+    before = _launches()
+    runs = [stream_filter_file(path, g.vlabels, q, chunk_edges=512,
+                               d_max=max_degree(g), sorted_stream=sorted_stream,
+                               device=dev) for dev in ("cuda", "cpu")]
+    after = _launches()
+    got, want = runs
+    assert tuple(got.stats) == tuple(want.stats)
+    np.testing.assert_array_equal(got.prefilter_alive, want.prefilter_alive)
+    for x, y in zip(got.retained, want.retained):
+        assert x.device.type == "cuda"
+        assert torch.equal(x.cpu(), y)
+    assert torch.equal(got.ilgf_result.alive.cpu(), want.ilgf_result.alive)
+    assert torch.equal(got.ilgf_result.candidates.cpu(),
+                       want.ilgf_result.candidates)
+    for name in ("cni_encode", "candidate_filter"):
+        assert after[name] > before[name], name
+    np.testing.assert_array_equal(
+        scan_filter(g, q, chunk_edges=1000, device="cuda"),
+        scan_filter(g, q, chunk_edges=1000, device="cpu"))
+
+
+def test_graph_index_on_card_equals_cpu(cuda):
+    from repro_torch.core import GraphDatabaseIndex
+
+    graphs = [random_labeled_graph(20 + i % 41, int(1.1 * (20 + i % 41)), 20,
+                                   seed=1000 + i, device="cpu")
+              for i in range(100)]
+    before = enc_ops.cni_encode.launches
+    got = GraphDatabaseIndex(graphs, device="cuda")
+    assert enc_ops.cni_encode.launches == before + 1  # one encode for all
+    want = GraphDatabaseIndex(graphs, device="cpu")
+    for a, b in zip(got.entries, want.entries):
+        assert a.digests.keys() == b.digests.keys()
+        for lab in b.digests:
+            np.testing.assert_allclose(a.digests[lab], b.digests[lab],
+                                       rtol=0, atol=1e-5)
+    for s in range(8):
+        i = (37 * s) % len(graphs)
+        q = random_walk_query(graphs[i], 4 + s % 5, seed=s, device="cpu")
+        cands = got.candidates(q)
+        assert cands == want.candidates(q) and i in cands
+        res, w_res = got.query(q), want.query(q)
+        assert set(res) == set(w_res)
+        for k in w_res:
+            np.testing.assert_array_equal(res[k], w_res[k])
+
+
+def _ooc_stream(device, root):
+    from repro_torch.graphs import OutOfCoreGraphStore
+
+    g = random_labeled_graph(3000, 15000, 8, seed=42, device="cpu")
+    store = OutOfCoreGraphStore.from_graph(g, storage_dir=root,
+                                           chunk_edges=1024, degree_cap=64,
+                                           device=device)
+    queries = [random_walk_query(g, 5, seed=60 + i, device="cpu")
+               for i in range(4)]
+    out = []
+    for b in random_update_batches(g, 3, 2048, delete_frac=0.35, seed=1):
+        res = store.apply(b)
+        out.append(("apply", res.n_inserted, res.n_deleted, res.n_skipped,
+                    res.applied.elabels.tolist()))
+        for q in queries:
+            emb, st = SubgraphQueryEngine(store, enumerator="device",
+                                          device=device).query(q)
+            out.append(("query", emb.tolist(), st.extras["ooc"]["chunks_read"]))
+        for emb, _ in BatchQueryEngine(store, device=device).query_batch(queries):
+            out.append(("batch", emb.tolist()))
+    out.append(("compact", store.compact()))
+    for q in queries:
+        out.append(("query", SubgraphQueryEngine(store, device=device).query(
+            q)[0].tolist()))
+    return store, out
+
+
+def test_ooc_store_on_card_equals_cpu(cuda, tmp_path):
+    before = _launches()
+    got_store, got = _ooc_stream("cuda", str(tmp_path / "card"))
+    after = _launches()
+    want_store, want = _ooc_stream("cpu", str(tmp_path / "host"))
+    assert got == want
+    idx, cpu = got_store.index, want_store.index
+    for name in ("counts", "deg", "cni"):
+        assert torch.equal(getattr(idx, name).cpu(), getattr(cpu, name)), name
+    torch.testing.assert_close(idx.cni_log.cpu(), cpu.cni_log, rtol=2.0**-22,
+                               atol=1e-5)
+    fresh = IncrementalIndex(d_max=idx.d_max)
+    fresh.rebuild(got_store)  # streamed from the chunks, on the card
+    for name in ("counts", "deg", "cni", "cni_log"):
+        assert torch.equal(getattr(idx, name), getattr(fresh, name)), name
+    for name in ("embed_join_count", "embed_join_emit", "cni_encode",
+                 "candidate_filter", "cni_update"):
+        assert after[name] > before[name], name

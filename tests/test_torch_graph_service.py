@@ -601,7 +601,7 @@ def test_device_default_and_later_slices(monkeypatch, graph):
     g = port(graph)
     with pytest.raises(NotImplementedError, match="item 11"):
         GraphQueryService(g, GraphServiceConfig(mesh=object()), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="incremental index"):
         GraphQueryService(GraphSnapshot(0, g, None, ooc=object()),
                           device="cpu")
     store = GraphStore.from_graph(g, device="cpu")
