@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 1,2,11     # the graph-query service
     python3 chip_smoke.py --phases 1,2,8,12   # stream filter, graph index,
                                               # out-of-core store
+    python3 chip_smoke.py --phases 1,2,13     # the multi-device path
 
 Phases:
 
@@ -107,11 +108,18 @@ Phases:
               filter and join kernels on the out-of-core ``query``,
               ``query_batch`` and service calls, cni_update on its
               ``apply`` and the service's mutations, and no cni_encode in
-              its restore.
+              its restore; on phase 13 cni_encode and candidate_filter on
+              ``distributed_ilgf``, the filter and join kernels on the
+              meshed ``query``, ``query_batch`` and service calls, the
+              count and emit kernels on ``sharded_device_join_search``,
+              the grid kernel on ``distributed_join_search``, cni_encode
+              on the sharded seed, cni_update on its ``apply`` and the
+              meshed service's mutations, and no cni_encode in its
+              restore.
 9. store    — ``GraphStore`` + ``IncrementalIndex`` on the card: the
               join-heavy graph with ``random_update_batches(.., 8, 4096,
               delete_frac=0.35, seed=1)``, and the scale graph seeded as a
-              store (d_max 64, max_p 4096) taking 8 batches of 65,536
+              store (d_max 64, max_p 4096) taking 4 batches of 65,536
               records at 35 % deletes (deletes drawn from alive edges,
               inserts uniform non-edges; drawn here, vectorised, each
               against the store as it stands).  Before the join-heavy
@@ -120,7 +128,7 @@ Phases:
               real delta, a digest neither 0 nor SAT64; the scale
               frontier's rows are saturated).  Per batch the apply time,
               split into the host edge table and the index's maintenance;
-              a 9th batch, outside the measured stream, under
+              a 5th batch, outside the measured stream, under
               torch.profiler.
               After the stream the index must equal a scratch rebuild bit
               for bit (counts, degrees, exact and log digests); the
@@ -203,14 +211,45 @@ Phases:
               in-memory engine and the DFS oracle, with each query's chunk
               IO, fetch, filter and search seconds; one 65,536-record
               batch at 35 % deletes (chunk probes and cni_update timed
-              apart), ``compact()``, the index against a streamed scratch
-              rebuild, and the queries again against the in-memory engine
-              on a graph rebuilt from ``alive_edges()``.  (d) phase 11's
+              apart), ``compact()`` and the index against a streamed
+              scratch rebuild (the queries are no longer repeated after
+              the apply: phase 13 took their time).  (d) phase 11's
               join-heavy service config over an out-of-core store
               (chunk_edges 2,048) against an in-memory twin fed the same
               32 requests and two 512-record batches: equal outcomes, the
               ``repro_ooc_*`` counters equal to the epochs' reports, and a
               warm restore (same epoch and generation, no cni_encode).
+13. mesh    — the multi-device path on logical shards of the one card,
+              ``device_mesh(D, devices=["cuda:0"] * D)``: (a)
+              ``distributed_ilgf`` on phase 6's dense scale query at D 1, 2
+              and 4, each equal to ``ilgf`` (alive, candidates, rounds),
+              with its host prepare and filter seconds, its cni_encode and
+              candidate_filter launches (D per round and D for the final
+              match, checked) and peak memory; (b)
+              ``SubgraphQueryEngine(scale, mesh=<4 shards>,
+              enumerator="device")`` equal to the unmeshed engine; (c)
+              phase 5's queries through ``sharded_device_join_search`` at D
+              2 and 4 with the default rebalance threshold and 1.05 (rows
+              in order, the truncation sweep at 1, total/2, total,
+              total+3), the rebalance rounds, rows moved and seconds and
+              the emit rows per level and shard, and
+              ``distributed_join_search`` (cap 4,096) equal to the DFS
+              oracle as a set; (d) ``BatchQueryEngine(mesh=<4 shards>)`` on
+              phase 7's HUMAN batch of 32 and scale batch of 8, each query
+              equal to the unmeshed batch's; (e) the scale graph as a
+              4-shard ``ShardedGraphStore`` (degree cap 64) with a
+              ``ShardedIncrementalIndex``: seed, two 65,536-record batches
+              at 35 % deletes (phase 9's draw), the boundary records, the
+              cni_update launches and the apply split into host table and
+              index, then every shard of the index against a scratch
+              rebuild bit for bit; (f) phase 11's join-heavy service over a
+              4-shard store with a 4-shard mesh beside an unmeshed twin
+              over a ``GraphStore`` (two waves of 16, two 512-record
+              batches, no deadlines): equal results, rejections and
+              counters, then a warm restore of the sharded snapshot (every
+              shard bit for bit, no cni_encode); and the scale sharded
+              store behind ``GraphServiceConfig(mesh=<4 shards>)``: 8 dense
+              queries, each equal to the engine on the snapshot.
 
 Any failure propagates: the script exits non-zero and prints no result.
 The last line of a passing run is
@@ -317,14 +356,16 @@ def record_levels(ops, search, engine, query):
         calls.append(args)  # the join replaces tables, never writes them
         return ops.embed_join_count(*args)
 
-    # the search module sees a recording stand-in for the ops module
-    search.ops = types.SimpleNamespace(
+    # the device join's shard steps see a recording stand-in for the ops
+    # module
+    shard_steps = search.dist
+    shard_steps.join_ops = types.SimpleNamespace(
         embed_join=ops.embed_join, embed_join_count=recording,
         embed_join_emit=ops.embed_join_emit)
     try:
         engine.query(query)
     finally:
-        search.ops = ops
+        shard_steps.join_ops = ops
     return calls
 
 
@@ -604,6 +645,16 @@ def scale_graph(graphs, scale: float):
     return g
 
 
+@functools.lru_cache(maxsize=1)
+def scale_queries(graphs, scale: float):
+    """The scale batch's dense 10-vertex queries (seeds 3 on), drawn once:
+    each draw sorts the 138M directed edges on the host."""
+    g = scale_graph(graphs, scale)
+    return tuple(graphs.random_walk_query(g, 10, sparse=False, seed=s,
+                                          device="cuda")
+                 for s in range(3, 3 + SCALE_BATCH))
+
+
 def first_round(core, graphs, g, q):
     """The operands of a query's first ILGF round on ``g``: the alive-masked
     count rows (V, L), the data ords, d_max, max_p and the query digest."""
@@ -764,7 +815,7 @@ def phase_filter_kernels(enc_ops, enc_ref, cf_ops, cf_ref, core, graphs, scale):
     human = graphs.paper_dataset("HUMAN", device="cuda")
     q_h = graphs.random_walk_query(human, 16, sparse=True, seed=4, device="cuda")
     g_s = scale_graph(graphs, scale)
-    q_s = graphs.random_walk_query(g_s, 10, sparse=False, seed=3, device="cuda")
+    q_s = scale_queries(graphs, scale)[0]
     rounds = {
         "scale_round1": first_round(core, graphs, g_s, q_s),
         "HUMAN_round1": first_round(core, graphs, human, q_h),
@@ -843,9 +894,10 @@ def phase_filter_kernels(enc_ops, enc_ref, cf_ops, cf_ref, core, graphs, scale):
 # from its first batch; phase 9 applies the stream)
 # ---------------------------------------------------------------------------
 
-# the scale store's stream: 8 batches of 65,536 records at 35 % deletes (16
-# before phase 11 joined the run; 8 keep the whole run near half its limit)
-STREAM_BATCHES = 8
+# the scale store's stream: 4 batches of 65,536 records at 35 % deletes (16
+# before phase 11 joined the run, 8 before phase 13 did; 4 keep the whole
+# run near 1,000 s)
+STREAM_BATCHES = 4
 STREAM_RECORDS = 65_536
 DELETE_FRAC = 0.35
 
@@ -1203,8 +1255,7 @@ def phase_batch(main, core, graphs, scale: float):
     log(f"[7 batch] HUMAN, 32 sparse queries of 10-14 vertices")
     run_batch(main, core, graphs, human, queries, "HUMAN")
     g = scale_graph(graphs, scale)
-    queries = [graphs.random_walk_query(g, 10, sparse=False, seed=s, device="cuda")
-               for s in range(3, 3 + SCALE_BATCH)]
+    queries = list(scale_queries(graphs, scale))
     log(f"[7 batch] scale graph, {SCALE_BATCH} dense 10-vertex queries")
     run_batch(main, core, graphs, g, queries, "scale")
     profile_filters(core, graphs, g, queries)
@@ -1463,6 +1514,8 @@ def phase_store(main, core, graphs, scale: float, upd_ops, upd_ref, enc_ops,
                   [(4, True, 1), (5, True, 2), (6, True, 3)], "join")
 
     store, stream, seeded = scale_store(main, core, graphs, scale)
+    log(f"  cut: phase 9's scale stream runs {STREAM_BATCHES} batches (8 "
+        f"before phase 13 joined the run)")
     log(f"[9 store] scale store: {STREAM_BATCHES} batches of "
         f"{STREAM_RECORDS:,} records at {DELETE_FRAC:.0%} deletes (seeded in "
         f"{seeded['seed_s']:.3f} s, index rebuilt in {seeded['rebuild_s']:.3f} "
@@ -2115,7 +2168,7 @@ def ooc_report(st):
             f"{st.search_seconds:.4f} s")
 
 
-def ooc_queries(main, core, graphs, store, plain, queries, tag, oracle_too):
+def ooc_queries(main, core, graphs, store, plain, queries, tag):
     """The out-of-core engine and batch engine against the in-memory
     engine (and the DFS oracle) as sets of rows."""
     eng = core.SubgraphQueryEngine(store, enumerator="device")
@@ -2126,7 +2179,7 @@ def ooc_queries(main, core, graphs, store, plain, queries, tag, oracle_too):
         want = plain.query(q)[0]
         if emb_set(emb) != emb_set(want) or emb.shape != want.shape:
             raise AssertionError(f"{tag} query {k}: ooc != in-memory engine")
-        if oracle_too and emb_set(emb) != emb_set(oracle(core, graphs, plain, q)):
+        if emb_set(emb) != emb_set(oracle(core, graphs, plain, q)):
             raise AssertionError(f"{tag} query {k}: ooc != DFS oracle")
         singles.append(emb)
         log(f"  {tag} query {k}: {emb.shape[0]} embeddings, wall {wall:.3f} "
@@ -2147,7 +2200,7 @@ def ooc_queries(main, core, graphs, store, plain, queries, tag, oracle_too):
 
 def ooc_scale(main, core, graphs, g, queries, tmp):
     """(c) The out-of-core store at scale: seed, queries, one batch,
-    compaction, queries again."""
+    compaction, the index against a streamed scratch rebuild."""
     root = os.path.join(tmp, "ooc")
     store, write_s = synced_s(lambda: main.run(
         "ooc_seed", lambda: graphs.OutOfCoreGraphStore.from_graph(
@@ -2165,7 +2218,7 @@ def ooc_scale(main, core, graphs, g, queries, tmp):
         f"{idx.counts.numel() * 4 / 1e9:.2f} GB on the card, d_max "
         f"{idx.d_max})")
     plain = core.SubgraphQueryEngine(g, enumerator="device")
-    ooc_queries(main, core, graphs, store, plain, queries, "ooc", True)
+    ooc_queries(main, core, graphs, store, plain, queries, "ooc")
 
     batch = draw_update_batch(graphs, store, np.random.default_rng(17),
                               STREAM_RECORDS, DELETE_FRAC)
@@ -2195,17 +2248,9 @@ def ooc_scale(main, core, graphs, g, queries, tmp):
     log(f"  compact(): {dead:,} tombstones reclaimed in {compact_s:.2f} s, "
         f"generation {store.generation}, {store.n_chunks} chunks")
     check_scratch(core, store, "ooc")
-    lo, hi, lab = store.alive_edges()
-    g2, build_s = synced_s(lambda: graphs.build_graph(
-        store.n_vertices, store.vlabels, np.stack([lo, hi], axis=1), lab,
-        device="cuda"))
-    del lo, hi, lab
-    log(f"  check graph rebuilt from alive_edges() in {build_s:.1f} s "
-        f"({g2.n_edges:,} edges)")
-    plain2 = core.SubgraphQueryEngine(g2, enumerator="device")
-    ooc_queries(main, core, graphs, store, plain2, queries, "ooc after apply",
-                False)
-    del plain2, g2
+    log("  cut: (c) no longer repeats its queries after the apply against a "
+        "graph rebuilt from alive_edges() (about 55 s, most of it the host "
+        "rebuild), since phase 13 joined the run")
     return store
 
 
@@ -2806,9 +2851,406 @@ def phase_serve(main, lm, arch: str):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the multi-device path, logical shards on the card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = (1, 2, 4)
+MESH_STORE_BATCHES = 2
+# the meshed join-heavy service's traffic: waves of requests, a mutation
+# batch after each wave's first tick (phase 11's shapes, no deadlines, so
+# the twins' outcomes cannot depend on their speeds)
+MESH_SERVICE_WAVES = 2
+
+
+def card_mesh(core, n: int):
+    """``n`` logical shards on the one card."""
+    return core.device_mesh(n, devices=["cuda:0"] * n)
+
+
+def held_gib() -> float:
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def mesh_filter(main, core, graphs, g, q):
+    """(a) ``distributed_ilgf`` at 1, 2 and 4 shards against ``ilgf``."""
+    from repro_torch.core import distributed as dist
+
+    want, plain_s = synced_s(lambda: core.ilgf(g, q))
+    log(f"  (a) plain ilgf: {want.iterations} rounds, alive "
+        f"{int(want.alive.sum())}, {plain_s:.4f} s")
+    for n in MESH_SHARDS:
+        m = card_mesh(core, n)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        prep, prep_s = synced_s(lambda: dist.prepare_sharded_edges(g, m))
+        res, filt_s = synced_s(lambda: main.run(
+            "sharded_filter",
+            lambda: dist.distributed_ilgf(g, q, m, prepared=prep)))
+        got = main.read()
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        expect = n * (res.iterations + 1)
+        log(f"  (a) D={n}: prepare {prep_s:.4f} s (edge buckets "
+            f"{[int(s.numel()) for s in prep[0].edge_src]}), filter "
+            f"{filt_s:.4f} s, {res.iterations} rounds, cni_encode "
+            f"{got['cni_encode']} and candidate_filter "
+            f"{got['candidate_filter']} launches (D per round + the final "
+            f"match: {expect}; cni_encode one more for the query digest), "
+            f"peak {peak:.3f} GiB above the {held / 2**30:.3f} GiB held")
+        if (res.iterations != want.iterations
+                or not torch.equal(res.alive, want.alive)
+                or not torch.equal(res.candidates, want.candidates)):
+            raise AssertionError(f"distributed_ilgf at D={n} != ilgf")
+        if (got["cni_encode"] != expect + 1
+                or got["candidate_filter"] != expect):
+            raise AssertionError(f"D={n}: the shards launched {got}, not "
+                                 f"{expect} each")
+        if n == MESH_SHARDS[-1]:
+            # the device time of the shards' kernels against the exchange's
+            # copies (the mask's gather, the candidates' gather)
+            profile(f"distributed_ilgf, {n} shards",
+                    lambda: dist.distributed_ilgf(g, q, m, prepared=prep),
+                    top=10)
+        del prep, res
+
+
+def mesh_engine(main, core, g, q):
+    """(b) the meshed engine against the unmeshed one."""
+    eng, build_s = synced_s(lambda: core.SubgraphQueryEngine(
+        g, mesh=card_mesh(core, 4), enumerator="device"))
+    (emb, st), wall = synced_s(lambda: main.run("meshed_engine",
+                                                lambda: eng.query(q)))
+    want, w_st = core.SubgraphQueryEngine(g, enumerator="device").query(q)
+    enum = st.extras["enum"]
+    log(f"  (b) meshed engine (4 shards; built with its prepare in "
+        f"{build_s:.4f} s): {emb.shape[0]} embeddings, {st.ilgf_iterations} "
+        f"rounds, filter {st.filter_seconds:.4f} s, search "
+        f"{st.search_seconds:.4f} s, wall {wall:.4f} s (unmeshed: filter "
+        f"{w_st.filter_seconds:.4f} s, search {w_st.search_seconds:.4f} s); "
+        f"enum_shards {enum['enum_shards']}, emit rows per level "
+        f"{[lv['emit_rows'] for lv in enum['levels']]}")
+    if not np.array_equal(emb, want) or enum["enum_shards"] != 4 \
+            or st.ilgf_iterations != w_st.ilgf_iterations:
+        raise AssertionError("the meshed engine != the unmeshed engine")
+
+
+def mesh_join(main, core, graphs, search):
+    """(c) the partitioned join on phase 5's queries: at 2 and 4 shards,
+    the default and a low rebalance threshold, the truncation sweep, and
+    ``distributed_join_search`` against the DFS oracle."""
+    from repro_torch.core import distributed as dist
+
+    g = graphs.random_labeled_graph(8000, 40000, 8, seed=42, device="cuda")
+    for n_q, sparse, seed in ((4, True, 1), (5, True, 2), (6, True, 3)):
+        q = graphs.random_walk_query(g, n_q, sparse=sparse, seed=seed,
+                                     device="cuda")
+        res = core.ilgf(g, q)
+        alive = res.alive.cpu().numpy()
+        sub, _ = graphs.induced_subgraph(g, alive)
+        cand = res.candidates.cpu().numpy()[alive]
+        qh = graphs.to_host(q)
+        want, plain_s = synced_s(lambda: search.device_join_search(sub, qh,
+                                                                   cand))
+        total = want.shape[0]
+        for n in (2, 4):
+            m = card_mesh(core, n)
+            for th in (1.25, 1.05):
+                rep = {}
+                got, s = synced_s(lambda: main.run(
+                    "sharded_join", lambda: search.sharded_device_join_search(
+                        sub, qh, cand, mesh=m, report=rep,
+                        rebalance_threshold=th)))
+                rows = [lv["emit_rows"] for lv in rep["levels"]]
+                imbalance = max(max(r) * n / max(1, sum(r)) for r in rows)
+                log(f"  (c) q{n_q} D={n} threshold {th}: {total} rows in "
+                    f"{s:.4f} s (one device {plain_s:.4f} s); rebalance "
+                    f"rounds {rep['rebalance_rounds']}, rows moved "
+                    f"{rep['rebalance_rows_moved']}, "
+                    f"{rep['rebalance_seconds']:.4f} s; emit rows per level "
+                    f"and shard {rows}, worst level's heaviest shard "
+                    f"{imbalance:.3f}x the mean")
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"q{n_q} D={n} th={th}: sharded "
+                                         "join != device join")
+                if th != 1.05:
+                    continue
+                for cap in (1, max(1, total // 2), total, total + 3):
+                    cut = main.run("sharded_join", lambda: (
+                        search.sharded_device_join_search(
+                            sub, qh, cand, mesh=m, max_embeddings=cap,
+                            rebalance_threshold=th)))
+                    if not np.array_equal(cut, want[:cap]):
+                        raise AssertionError(f"q{n_q} D={n}: prefix {cap}")
+        truth = core.host_dfs_search(sub, qh, cand)
+        (emb, ovf), s = synced_s(lambda: main.run(
+            "distributed_join", lambda: dist.distributed_join_search(
+                sub, qh, cand, card_mesh(core, 4), cap=4096)))
+        log(f"  (c) q{n_q} distributed_join_search (4 shards, cap 4,096): "
+            f"{emb.shape[0]} rows in {s:.4f} s, overflow {ovf}; DFS oracle "
+            f"{truth.shape[0]} rows")
+        if ovf or emb_set(emb) != emb_set(truth):
+            raise AssertionError(f"q{n_q}: distributed_join_search != DFS")
+
+
+def mesh_batch(main, core, graphs, scale: float):
+    """(d) the meshed batch engine against the unmeshed one."""
+    human = graphs.paper_dataset("HUMAN", device="cuda")
+    rng = np.random.default_rng(100)
+    hq = [graphs.random_walk_query(human, int(rng.integers(10, 15)),
+                                   sparse=True, seed=100 + i, device="cuda")
+          for i in range(32)]
+    g, sq = scale_graph(graphs, scale), list(scale_queries(graphs, scale))
+    for data, queries, tag in ((human, hq, "HUMAN"), (g, sq, "scale")):
+        want, plain_s = synced_s(lambda: core.BatchQueryEngine(
+            data, enumerator="device").query_batch(queries))
+        eng, build_s = synced_s(lambda: core.BatchQueryEngine(
+            data, mesh=card_mesh(core, 4), enumerator="device"))
+        torch.cuda.reset_peak_memory_stats()
+        got, s = synced_s(lambda: main.run("meshed_batch",
+                                           lambda: eng.query_batch(queries)))
+        filt = sum(st.filter_seconds for _, st in got)
+        log(f"  (d) {tag} batch of {len(queries)}, 4 shards: {s:.4f} s "
+            f"(filter {filt:.4f} s; engine and prepare {build_s:.4f} s; "
+            f"unmeshed {plain_s:.4f} s), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        for i, ((e1, s1), (e2, s2)) in enumerate(zip(got, want)):
+            if not np.array_equal(e1, e2) \
+                    or s1.ilgf_iterations != s2.ilgf_iterations:
+                raise AssertionError(f"{tag} q{i}: meshed batch != batch")
+
+
+def check_sharded_scratch(core, store, tag):
+    """Each shard's index slice equals a scratch rebuild's, bit for bit."""
+    idx = store.index
+    fresh, s = synced_s(lambda: core.IncrementalIndex(d_max=idx.d_max))
+    _, s = synced_s(lambda: fresh.rebuild(store))
+    bad = []
+    for i in range(idx._plan.n_shards):
+        lo, hi = idx._plan.bounds(i)
+        st = idx.shard_state(i)
+        for name in ("counts", "deg", "cni", "cni_log"):
+            if not torch.equal(getattr(st, name), getattr(fresh, name)[lo:hi]):
+                bad.append((i, name))
+    log(f"  {tag} scratch rebuild {s:.4f} s; every shard's counts, deg, cni "
+        f"and cni_log equal it bit for bit: {not bad}")
+    if bad:
+        raise AssertionError(f"{tag}: sharded index != scratch in {bad}")
+
+
+def mesh_store(main, core, graphs, g):
+    """(e) a 4-shard store of the scale graph with its sharded index: the
+    seed, two 65,536-record batches, the index against a scratch rebuild.
+    The degree cap of 64 is set after the seed, as phase 11 sets its
+    stores' (the seed's own check would sort 138M endpoints)."""
+    store, seed_s = synced_s(lambda: main.run(
+        "sharded_store_seed", lambda: graphs.ShardedGraphStore.from_graph(
+            g, n_shards=4)))
+    store.degree_cap = 64
+    _, index_s = synced_s(lambda: main.run(
+        "sharded_store_seed",
+        lambda: store.attach_index(core.ShardedIncrementalIndex())))
+    encodes = main.read()["cni_encode"]
+    log(f"  (e) 4-shard store: {store.n_edges} edges, seeded in {seed_s:.3f} "
+        f"s (host tables), index in {index_s:.3f} s ({encodes} cni_encode "
+        f"launches); shard stats {[tuple(s) for s in store.shard_stats()]}")
+    rng = np.random.default_rng(13)  # phase 9's draw
+    st = store.index.stats
+    for i in range(MESH_STORE_BATCHES):
+        batch = draw_update_batch(graphs, store, rng, STREAM_RECORDS,
+                                  DELETE_FRAC)
+        index_s, b0 = [], st.boundary_exchanged
+        timed_index(store.index, index_s)
+        res, s = synced_s(lambda: main.run("sharded_store",
+                                           lambda: store.apply(batch)))
+        del store.index.apply_batch
+        log(f"  (e) batch {i + 1}: +{res.n_inserted} -{res.n_deleted}, "
+            f"{st.boundary_exchanged - b0} boundary records, "
+            f"{main.read()['cni_update']} cni_update launches; apply {s:.4f} "
+            f"s = host table {s - index_s[0]:.4f} s + index "
+            f"{index_s[0]:.4f} s")
+    log(f"  (e) IndexStats: {st}; boundary edges alive "
+        f"{store.n_boundary_edges}")
+    check_sharded_scratch(core, store, "(e)")
+    return store
+
+
+def mesh_service_twins(main, core, graphs, serve, directory):
+    """(f) the join-heavy service over a 4-shard store with a 4-shard mesh,
+    beside an unmeshed twin over a ``GraphStore``: the same calls, equal
+    outcomes and counters; then a warm restore of the sharded snapshot."""
+    g = graphs.random_labeled_graph(8000, 40000, 8, seed=42, device="cuda")
+    flat = graphs.GraphStore.from_graph(g)
+    flat.attach_index(core.IncrementalIndex())
+    sh = graphs.ShardedGraphStore.from_graph(g, n_shards=4)
+    sh.attach_index(core.ShardedIncrementalIndex())
+    for store in (flat, sh):
+        service_cap(store)
+    kw = dict(max_slots=8, max_query_vertices=8, max_query_labels=8,
+              enumerator="device", plan_queries=True, max_queue_depth=16,
+              tenant_quota=12)
+    twin = serve.GraphQueryService(flat, serve.GraphServiceConfig(**kw))
+    cfg = serve.GraphServiceConfig(mesh=card_mesh(core, 4),
+                                   checkpoint_dir=directory, **kw)
+    svc = serve.GraphQueryService(sh, cfg)
+    rng = np.random.default_rng(7)
+    outs = {"twin": [], "mesh": []}
+    t0 = time.perf_counter()
+
+    def both(name, path, *args):
+        want = main.run("twin", lambda: getattr(twin, name)(*args))
+        got = main.run(path, lambda: getattr(svc, name)(*args))
+        return want, got
+
+    def tick():
+        want, got = both("tick", "meshed_service")
+        outs["twin"] += want
+        outs["mesh"] += got
+
+    for wave in range(MESH_SERVICE_WAVES):
+        for i in range(SERVICE_WAVE):
+            k = wave * SERVICE_WAVE + i
+            q = graphs.random_walk_query(sh.snapshot().graph, 4 + k % 3,
+                                         sparse=True, seed=2000 + k,
+                                         device="cuda")
+            outcome = []
+            for s, path in ((twin, "twin"), (svc, "meshed_service")):
+                try:
+                    outcome.append(main.run(path, lambda s=s: s.submit(
+                        q, tenant=f"tenant{k % 2}", priority=k % 2)))
+                except serve.AdmissionRejected as err:
+                    outcome.append((err.rid, err.reason))
+            if outcome[0] != outcome[1]:
+                raise AssertionError(f"the twins admitted differently: "
+                                     f"{outcome}")
+        tick()
+        gone, new = split_batch(draw_update_batch(
+            graphs, sh, rng, SERVICE_RECORDS, DELETE_FRAC))
+        both("remove_edges", "meshed_service_mutate", gone)
+        both("add_edges", "meshed_service_mutate", new)
+        tick()
+    want, got = both("run_to_completion", "meshed_service")
+    outs["twin"] += want
+    outs["mesh"] += got
+    wall = time.perf_counter() - t0
+    if [r for r, _, _ in outs["mesh"]] != [r for r, _, _ in outs["twin"]]:
+        raise AssertionError("the twins finished different requests")
+    for (rid, a, sa), (_, b, sb) in zip(outs["mesh"], outs["twin"]):
+        if not np.array_equal(a, b) or \
+                sa.extras["service"]["epoch"] != sb.extras["service"]["epoch"]:
+            raise AssertionError(f"request {rid}: meshed != unmeshed")
+    # the meshed service alone writes snapshots
+    counters = [{k: v["series"] for k, v in s.metrics_snapshot().items()
+                 if v["type"] == "counter" and "checkpoint" not in k}
+                for s in (svc, twin)]
+    rejected = [[(r.rid, r.reason, r.tenant) for r in s.rejections]
+                for s in (svc, twin)]
+    if counters[0] != counters[1] or rejected[0] != rejected[1]:
+        raise AssertionError(f"service counters differ: {counters}")
+    log(f"  (f) join-heavy twins: {len(outs['mesh'])} results equal row for "
+        f"row, {len(svc.rejections)} rejections alike, counters equal, "
+        f"epochs {sorted({s.extras['service']['epoch'] for _, _, s in outs['mesh']})}; "
+        f"both services {wall:.3f} s; boundary edges alive "
+        f"{sh.n_boundary_edges}")
+    main.run("twin", twin.shutdown)
+    main.run("meshed_service", svc.shutdown)
+    svc.wait_for_checkpoints()
+    state = [sh.index.shard_state(i) for i in range(4)]
+    restored, s = synced_s(lambda: main.run(
+        "mesh_restore", lambda: serve.GraphQueryService.restore(
+            directory, cfg, device="cuda")))
+    idx = restored.store.index
+    same = all(torch.equal(getattr(idx.shard_state(i), name),
+                           getattr(state[i], name))
+               for i in range(4) for name in ("counts", "deg", "cni",
+                                              "cni_log"))
+    encodes = main.counts[(13, "mesh_restore")]["cni_encode"]
+    log(f"  (f) restore of the sharded snapshot at epoch "
+        f"{restored.store.epoch} in {s:.3f} s: a ShardedGraphStore "
+        f"{isinstance(restored.store, graphs.ShardedGraphStore)}, every "
+        f"shard bit for bit {same}, cni_encode launches {encodes}")
+    if restored.store.epoch != sh.epoch or not same or encodes or \
+            not isinstance(restored.store, graphs.ShardedGraphStore):
+        raise AssertionError("the sharded warm restore differs")
+    restored.shutdown()
+
+
+def mesh_service_scale(main, core, graphs, serve, store, queries):
+    """(f) the 4-shard scale store behind a 4-shard service: the scale
+    batch's dense queries, no mutation, each equal to the engine's."""
+    from repro_torch.core import distributed as dist
+
+    cap = service_cap(store)
+    svc, built_s = synced_s(lambda: serve.GraphQueryService(
+        store, serve.GraphServiceConfig(mesh=card_mesh(core, 4),
+                                        enumerator="device")))
+    snap, snap_s = synced_s(store.snapshot)
+    _, prep_s = synced_s(lambda: dist.prepare_sharded_edges(
+        snap, card_mesh(core, 4)))
+    qs = list(queries)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rids = [main.run("meshed_service_scale", lambda q=q: svc.submit(q))
+            for q in qs]
+    done = main.run("meshed_service_scale", svc.run_to_completion)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eng = core.SubgraphQueryEngine(snap, enumerator="device")
+    for rid, emb, _ in done:
+        want, _ = eng.query(qs[rids.index(rid)])
+        if emb_set(emb) != emb_set(want) or emb.shape != want.shape:
+            raise AssertionError(f"scale request {rid}: service != engine")
+    log(f"  (f) scale service, 4 shards (degree cap {cap}; built in "
+        f"{built_s:.3f} s, snapshot {snap_s:.3f} s, a shard prepare from "
+        f"the store's tables {prep_s:.4f} s): {len(done)} dense queries in "
+        f"{wall:.3f} s = {len(done) / wall:.4f} queries/s, peak {peak:.3f} "
+        f"GiB; each equal to the engine on the snapshot")
+    svc.shutdown()
+
+
+def phase_mesh(main, core, graphs, search, scale: float):
+    """Phase 13: the multi-device path on logical shards of the one card."""
+    import gc
+    import tempfile
+
+    from repro_torch import serve
+
+    log("[13 mesh] device_mesh(D, devices=['cuda:0'] * D): logical shards "
+        "on the one card (peer copies and NVLink untried)")
+    parts = {}
+    t = time.perf_counter()
+    g, queries = scale_graph(graphs, scale), scale_queries(graphs, scale)
+    q = queries[0]  # phase 6's query
+    mesh_filter(main, core, graphs, g, q)
+    parts["a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mesh_engine(main, core, g, q)
+    parts["b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mesh_join(main, core, graphs, search)
+    parts["c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mesh_batch(main, core, graphs, scale)
+    parts["d"] = time.perf_counter() - t
+    # free what earlier phases hold before the sharded scale store
+    scale_store.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  device memory held before (e): {held_gib():.3f} GiB")
+    t = time.perf_counter()
+    store = mesh_store(main, core, graphs, g)
+    parts["e"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        mesh_service_twins(main, core, graphs, serve, directory)
+    mesh_service_scale(main, core, graphs, serve, store, queries)
+    parts["f"] = time.perf_counter() - t
+    log(f"  phase 13 parts (s): { {k: round(v, 1) for k, v in parts.items()} }")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                         help="comma-separated phase numbers to run")
     parser.add_argument("--scale", type=float, default=1.0,
                         help="common factor on the scale graph's (and the "
@@ -2867,7 +3309,9 @@ def main(argv=None) -> int:
                     (11, lambda: phase_service(main, core, graphs, args.scale,
                                                stores.get("join"))),
                     (12, lambda: phase_stream_ooc(main, core, graphs,
-                                                  args.scale))):
+                                                  args.scale)),
+                    (13, lambda: phase_mesh(main, core, graphs, search,
+                                            args.scale))):
         if num in phases:
             main.phase = num
             t0 = time.perf_counter()
@@ -2905,14 +3349,27 @@ def main(argv=None) -> int:
                     (12, "ooc_query"): path, (12, "ooc_batch"): path,
                     (12, "ooc_service"): path,
                     (12, "ooc_service_mutate"): ("cni_update",),
-                    (12, "ooc_apply"): ("cni_update",)}
+                    (12, "ooc_apply"): ("cni_update",),
+                    (13, "sharded_filter"): ("cni_encode",
+                                             "candidate_filter"),
+                    (13, "meshed_engine"): path,
+                    (13, "sharded_join"): ("embed_join_count",
+                                           "embed_join_emit"),
+                    (13, "distributed_join"): ("embed_join_grid",),
+                    (13, "meshed_batch"): path,
+                    (13, "sharded_store_seed"): ("cni_encode",),
+                    (13, "sharded_store"): ("cni_update",),
+                    (13, "meshed_service"): path,
+                    (13, "meshed_service_mutate"): ("cni_update",),
+                    (13, "meshed_service_scale"): path}
         for (num, entry), names in required.items():
             for name in names:
                 if num in phases and main.counts[(num, entry)][name] == 0:
                     raise AssertionError(
                         f"{name} never launched on phase {num}'s {entry} path")
         # a warm restore reads the maintained digests: it encodes nothing
-        for num, entry in ((11, "restore"), (12, "ooc_restore")):
+        for num, entry in ((11, "restore"), (12, "ooc_restore"),
+                           (13, "mesh_restore")):
             if num in phases and main.counts[(num, entry)]["cni_encode"]:
                 raise AssertionError(f"phase {num}'s {entry} launched "
                                      "cni_encode")

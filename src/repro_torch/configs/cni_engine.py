@@ -10,6 +10,7 @@ class CniEngineConfig:
     khop: int = 1
     searcher: str = "join"           # join | dfs
     enumerator: str = "host"         # host | device (two-phase resident join)
+    distributed_axis: str = "data"   # the mesh axis of core/distributed.py
     # Batched multi-query engine (core/batch_engine.py): queries are bucketed
     # by (d_max, |L(Q)|, |V(Q)|) rounded to powers of two; max_batch bounds
     # the padded batch dim of one batched ILGF round.

@@ -1,5 +1,6 @@
 """CNI encoding, ILGF filtering, search, the planner, the incremental
-index, stream filtering and the graph-database index, ported to PyTorch."""
+index, stream filtering, the graph-database index and the mesh-partitioned
+engine, ported to PyTorch."""
 
 from repro_torch.core.batch_engine import BatchQueryEngine, batched_ilgf_round
 from repro_torch.core.cni import (
@@ -7,6 +8,15 @@ from repro_torch.core.cni import (
     cni_from_counts,
     cni_log_from_counts,
     default_max_p,
+)
+from repro_torch.core.distributed import (
+    PartitionPlan,
+    ShardMesh,
+    device_mesh,
+    distributed_ilgf,
+    distributed_join_search,
+    sharded_batched_ilgf_round,
+    vertex_partition,
 )
 from repro_torch.core.engine import QueryStats, SubgraphQueryEngine, search_filtered
 from repro_torch.core.ilgf import IlgfResult, ilgf, one_shot_filter
@@ -31,6 +41,7 @@ from repro_torch.core.search import (
     empty_enum_report,
     greedy_matching_order,
     host_dfs_search,
+    sharded_device_join_search,
 )
 from repro_torch.core.graph_index import GraphDatabaseIndex
 from repro_torch.core.stats import GraphStats
@@ -43,13 +54,15 @@ from repro_torch.core.stream import (
 
 __all__ = [
     "SAT64", "BatchQueryEngine", "GraphDatabaseIndex", "GraphStats",
-    "IlgfResult", "IncrementalIndex", "IndexSnapshot", "IndexStats", "Plan",
-    "PlanCache", "QueryPlanner", "QueryStats", "ShardedIncrementalIndex",
-    "StreamResult", "StreamStats", "SubgraphQueryEngine",
-    "batched_ilgf_round", "bfs_join_search", "canonical_form",
-    "cni_from_counts", "cni_log_from_counts", "default_max_p",
-    "device_join_search", "embeddings_equal", "empty_enum_report",
-    "greedy_matching_order", "host_dfs_search", "ilgf", "one_shot_filter",
-    "query_fingerprint", "scan_filter", "search_filtered", "store_prefilter",
-    "stream_filter_file",
+    "IlgfResult", "IncrementalIndex", "IndexSnapshot", "IndexStats",
+    "PartitionPlan", "Plan", "PlanCache", "QueryPlanner", "QueryStats",
+    "ShardMesh", "ShardedIncrementalIndex", "StreamResult", "StreamStats",
+    "SubgraphQueryEngine", "batched_ilgf_round", "bfs_join_search",
+    "canonical_form", "cni_from_counts", "cni_log_from_counts",
+    "default_max_p", "device_join_search", "device_mesh",
+    "distributed_ilgf", "distributed_join_search", "embeddings_equal",
+    "empty_enum_report", "greedy_matching_order", "host_dfs_search", "ilgf",
+    "one_shot_filter", "query_fingerprint", "scan_filter", "search_filtered",
+    "sharded_batched_ilgf_round", "sharded_device_join_search",
+    "store_prefilter", "stream_filter_file", "vertex_partition",
 ]

@@ -40,6 +40,10 @@ from repro_torch import obsv
 from repro_torch.configs.cni_engine import CONFIG as ENGINE_CONFIG
 from repro_torch.core import filters as flt
 from repro_torch.core.cni import cni_from_counts_np, default_max_p
+from repro_torch.core.distributed import (
+    prepare_sharded_edges,
+    sharded_batched_ilgf_round,
+)
 from repro_torch.core.engine import QueryStats, check_engine_args, search_filtered
 from repro_torch.core.ilgf import match_matrix
 from repro_torch.core.labels import counts_matrix_from_ords
@@ -241,18 +245,25 @@ class BatchQueryEngine:
     ``store_prefilter`` mask.  Over an out-of-core snapshot one chunk fetch
     covers the union of the batch's prefilter masks, and ``d_max`` is the
     store's resident bound.  ``planner``: an optional ``QueryPlanner``
-    shared by every query's search.  ``mesh=`` belongs to a later slice
-    and raises ``NotImplementedError``.
+    shared by every query's search.  ``mesh``: a
+    ``core.distributed.ShardMesh``; every peeling round then runs
+    vertex-partitioned (``sharded_batched_ilgf_round``) and, with
+    ``enumerator="device"``, each query's join row-partitioned, with
+    results equal to the unmeshed engine's.
     """
 
     def __init__(self, data, *, filter_variant: str = ENGINE_CONFIG.filter_variant,
                  khop: int = ENGINE_CONFIG.khop,
                  searcher: str = ENGINE_CONFIG.searcher,
                  search_vertex_cap: int = 8192, max_batch: int | None = None,
-                 max_iters: int = 1_000, mesh=None, planner=None,
-                 enumerator: str = ENGINE_CONFIG.enumerator,
+                 max_iters: int = 1_000, mesh=None,
+                 shard_axis: str = ENGINE_CONFIG.distributed_axis,
+                 planner=None, enumerator: str = ENGINE_CONFIG.enumerator,
                  d_max: int | None = None, device=None):
-        snap = check_engine_args(data, mesh, enumerator)
+        snap = check_engine_args(
+            data, mesh, shard_axis, enumerator, ooc_mesh_error=(
+                "out-of-core stores run single-host; build the batch engine "
+                "without mesh="))
         self.device = resolve_device(device)
         self.data = graph_to(snap.graph, self.device)
         self.epoch = snap.epoch
@@ -276,6 +287,13 @@ class BatchQueryEngine:
         # one planner (one plan cache) across every chunk and batch
         self.planner = planner
         self.enumerator = enumerator
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        self._sharded = None
+        if mesh is not None:
+            # vertex-partition the graph once; every round reuses it
+            self._sharded = prepare_sharded_edges(
+                snap._replace(graph=self.data), mesh, shard_axis)[:2]
 
     def query_batch(self, queries: Sequence[Graph], *,
                     max_embeddings: int | None = None
@@ -340,6 +358,13 @@ class BatchQueryEngine:
         return results
 
     def _round(self, qb, alive, *, l_pad, d_max, max_p):
+        """One peeling round, single-device or sharded (same contract)."""
+        if self._sharded is not None:
+            se, plan = self._sharded
+            return sharded_batched_ilgf_round(
+                se, plan, qb, alive, mesh=self.mesh, axis=self.shard_axis,
+                n_labels=l_pad, d_max=d_max, max_p=max_p,
+                variant=self.filter_variant)
         return batched_ilgf_round(self.data, qb, alive, n_labels=l_pad,
                                   d_max=d_max, max_p=max_p,
                                   variant=self.filter_variant)
@@ -430,6 +455,7 @@ class BatchQueryEngine:
                 stats, khop=self.khop, searcher=self.searcher,
                 search_vertex_cap=self.search_vertex_cap,
                 max_embeddings=max_embeddings, planner=self.planner,
-                enumerator=self.enumerator, device=self.device,
+                enumerator=self.enumerator, mesh=self.mesh,
+                shard_axis=self.shard_axis, device=self.device,
             )
             results[i] = (emb, stats)

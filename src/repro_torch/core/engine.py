@@ -3,9 +3,9 @@
 ``GraphSnapshot``.
 
 Pipeline = (store prefilter) → (out-of-core chunk fetch) → ILGF fixed
-point (on the device) → compaction (host) → optional k-hop refinement →
-(planner) → join enumeration.  ``search_filtered`` is the post-filter
-stage on its own.
+point (on the device, or vertex-partitioned over a mesh) → compaction
+(host) → optional k-hop refinement → (planner) → join enumeration.
+``search_filtered`` is the post-filter stage on its own.
 """
 
 from __future__ import annotations
@@ -17,16 +17,22 @@ from typing import Literal
 import numpy as np
 
 from repro_torch import obsv
+from repro_torch.core.distributed import (
+    distributed_ilgf,
+    mesh_shards,
+    prepare_sharded_edges,
+)
 from repro_torch.core.ilgf import ilgf
 from repro_torch.core.khop import refine_candidates_khop
 from repro_torch.core.search import (
     bfs_join_search,
     device_join_search,
     host_dfs_search,
+    sharded_device_join_search,
 )
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph, graph_to, induced_subgraph, to_host
-from repro_torch.graphs.store import GraphSnapshot, as_snapshot, later_slice
+from repro_torch.graphs.store import GraphSnapshot, as_snapshot
 
 
 @dataclass
@@ -54,6 +60,8 @@ def search_filtered(
     max_embeddings: int | None = None,
     planner=None,
     enumerator: str = "host",
+    mesh=None,
+    shard_axis: str = "data",
     device=None,
 ) -> np.ndarray:
     """Compaction → optional k-hop refinement → enumeration on one query.
@@ -72,6 +80,11 @@ def search_filtered(
     (``device_join_search``, whose telemetry lands in
     ``stats.extras["enum"]`` on every exit path, filter-killed queries
     included).  Embeddings are bit-identical either way.
+
+    ``mesh`` / ``shard_axis``: with ``enumerator="device"`` and a
+    ``ShardMesh``, enumeration runs partitioned across it
+    (``sharded_device_join_search``), still bit-identical, with the shard
+    fields of the telemetry filled in.  The host enumerator ignores it.
     """
     if enumerator not in ("host", "device"):
         raise ValueError(
@@ -124,9 +137,14 @@ def search_filtered(
                                   max_embeddings=max_embeddings)
         elif enumerator == "device":
             enum_report: dict = {}
-            emb = device_join_search(sub, query, cand, order=order,
-                                     max_embeddings=max_embeddings,
-                                     report=enum_report, device=dev)
+            if mesh is not None:
+                emb = sharded_device_join_search(
+                    sub, query, cand, mesh=mesh, axis=shard_axis, order=order,
+                    max_embeddings=max_embeddings, report=enum_report)
+            else:
+                emb = device_join_search(sub, query, cand, order=order,
+                                         max_embeddings=max_embeddings,
+                                         report=enum_report, device=dev)
             # from_dict is the schema checkpoint of every exit path
             stats.extras["enum"] = obsv.EnumReport.from_dict(enum_report)
         else:
@@ -138,16 +156,20 @@ def search_filtered(
     return old_ids[emb] if emb.size else emb
 
 
-def check_engine_args(data, mesh, enumerator: str) -> GraphSnapshot:
+def check_engine_args(data, mesh, shard_axis: str, enumerator: str, *,
+                      ooc_mesh_error: str) -> GraphSnapshot:
     """The engines' shared argument checks; returns ``data`` as a snapshot.
 
-    A ``Graph``, a store or a ``GraphSnapshot`` is accepted; an
-    out-of-core snapshot needs its store's incremental index, ``mesh=``
-    names its ROADMAP item, and the enumerator must be known.
+    A ``Graph``, a store or a ``GraphSnapshot`` is accepted; ``mesh`` is a
+    ``ShardMesh`` over ``shard_axis``; an out-of-core snapshot runs on one
+    device (``ooc_mesh_error`` names the engine) and needs its store's
+    incremental index; the enumerator must be known.
     """
     snap = as_snapshot(data)
     if mesh is not None:
-        raise later_slice("mesh=", "11 (multi-device)")
+        mesh_shards(mesh, shard_axis)
+    if snap.ooc is not None and mesh is not None:
+        raise ValueError(ooc_mesh_error)
     if snap.ooc is not None and snap.index is None:
         raise ValueError(
             "OutOfCoreGraphStore needs an attached incremental index — its "
@@ -179,8 +201,15 @@ class SubgraphQueryEngine:
     the index first, fetches only the edge chunks the mask touches, and
     runs ILGF and the search on that restricted graph with the store's
     resident ``d_max``; the chunk-IO telemetry lands in
-    ``stats.extras["ooc"]``.  ``mesh=`` belongs to a later slice of the
-    port and raises ``NotImplementedError``.
+    ``stats.extras["ooc"]``.
+
+    ``mesh``: a ``core.distributed.ShardMesh``; the filter then runs
+    vertex-partitioned across it (``distributed_ilgf``, consuming a
+    ``ShardedGraphStore``'s per-shard tables when the snapshot carries
+    them, prepared once here), with ``stats.extras["shards"]``, and with
+    ``enumerator="device"`` the join runs row-partitioned too
+    (``sharded_device_join_search``).  Results equal the unmeshed engine's
+    bit for bit.  An out-of-core store runs without a mesh.
     """
 
     def __init__(
@@ -193,11 +222,15 @@ class SubgraphQueryEngine:
         searcher: Literal["join", "dfs"] = "join",
         search_vertex_cap: int = 8192,
         mesh=None,
+        shard_axis: str = "data",
         planner=None,
         enumerator: Literal["host", "device"] = "host",
         device=None,
     ):
-        snap = check_engine_args(data, mesh, enumerator)
+        snap = check_engine_args(
+            data, mesh, shard_axis, enumerator, ooc_mesh_error=(
+                "out-of-core stores run single-host (resident digests + "
+                "chunk fetch); build the engine without mesh="))
         self.device = resolve_device(device)
         self.data = graph_to(snap.graph, self.device)
         self.epoch = snap.epoch
@@ -210,6 +243,14 @@ class SubgraphQueryEngine:
         self.search_vertex_cap = search_vertex_cap
         self.planner = planner
         self.enumerator = enumerator
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        self._prepared = None
+        if mesh is not None:
+            # bucket the vertex partition once (from a sharded store's own
+            # tables when the snapshot has them); every query reuses it
+            self._prepared = prepare_sharded_edges(
+                snap._replace(graph=self.data), mesh, shard_axis)
 
     def query(self, q: Graph, *, max_embeddings: int | None = None):
         """Returns (embeddings (M, |V(Q)|) int64 over original ids, stats).
@@ -238,8 +279,16 @@ class SubgraphQueryEngine:
                     alive0.cpu().numpy())
                 data = graph_to(restricted, self.device)
                 host_data = to_host(data)
-            res = ilgf(data, q, variant=self.filter_variant, alive0=alive0,
-                       d_max=self._ooc.d_max if self._ooc is not None else None)
+            if self.mesh is not None:
+                res = distributed_ilgf(
+                    data, q, self.mesh, axis=self.shard_axis,
+                    variant=self.filter_variant, alive0=alive0,
+                    prepared=self._prepared)
+                stats.extras["shards"] = self.mesh.n_shards
+            else:
+                res = ilgf(data, q, variant=self.filter_variant,
+                           alive0=alive0, d_max=(self._ooc.d_max if self._ooc
+                                                 is not None else None))
             alive = res.alive.cpu().numpy()
             candidates = res.candidates.cpu().numpy()
             stats.ilgf_iterations = res.iterations
@@ -255,6 +304,8 @@ class SubgraphQueryEngine:
                 max_embeddings=max_embeddings,
                 planner=self.planner,
                 enumerator=self.enumerator,
+                mesh=self.mesh,
+                shard_axis=self.shard_axis,
                 device=self.device,
             )
             return emb, stats

@@ -34,8 +34,8 @@ scatter and no full-graph encode.
 state through the durable tier (``serve/persist.py``), so a restore is
 warm: no rebuild, hence no ``cni_encode``.  The restore also reads a
 snapshot the reference wrote, whose exact digest is the uint64 leaf
-``cni_u64``.  The vertex-partitioned ``ShardedIncrementalIndex`` belongs to
-a later slice of the port and raises ``NotImplementedError``.
+``cni_u64``.  ``ShardedIncrementalIndex`` keeps the same state per shard
+of a ``ShardedGraphStore``, bit-identical once merged.
 """
 
 from __future__ import annotations
@@ -50,10 +50,11 @@ from repro_torch.checkpoint import CheckpointError
 from repro_torch.core import filters as flt
 from repro_torch.core.batch_engine import ceil_pow2, prepare_padded_query
 from repro_torch.core.cni import LOG_SAT64, SAT64, default_max_p
+from repro_torch.core.distributed import vertex_partition
 from repro_torch.core.stats import GraphStats, alive_edge_blocks
 from repro_torch.graphs.csr import as_numpy
 from repro_torch.device import resolve_device
-from repro_torch.graphs.store import EdgeBatch, GraphStore, later_slice
+from repro_torch.graphs.store import EdgeBatch, GraphStore
 from repro_torch.kernels.cni_encode import ops as encode_ops
 from repro_torch.kernels.cni_update import ops as update_ops
 
@@ -121,6 +122,15 @@ class IncrementalIndex:
         """Full build from the store's current edge set: scatters of its
         2|E| records into (V, Lu) counts, block by block, then
         ``cni_encode``."""
+        self.counts = self._count_edges(store)
+        self._encode_all()
+        # the planner's statistics ride along, rebuilt with the counts
+        self.graph_stats = GraphStats.from_store(store)
+        self._epoch = store.epoch
+
+    def _count_edges(self, store) -> torch.Tensor:
+        """Set the tables' bounds from ``store`` and return its (V, Lu)
+        int32 count matrix, built on the store's device."""
         self.device = store.device  # the store alone decides where
         self.universe = np.unique(store.vlabels)
         self.vlabels = store.vlabels
@@ -148,11 +158,7 @@ class IncrementalIndex:
                 counts.index_add_(0, flat, torch.ones(
                     flat.shape, dtype=torch.int32, device=self.device))
                 del flat
-        self.counts = counts.view(v, lu)
-        self._encode_all()
-        # the planner's statistics ride along, rebuilt with the counts
-        self.graph_stats = GraphStats.from_store(store)
-        self._epoch = store.epoch
+        return counts.view(v, lu)
 
     def _encode_rows(self, sub: torch.Tensor):
         """(k, Lu) count rows -> (deg, cni, canonical log) digest rows."""
@@ -344,11 +350,195 @@ def _decreased(applied: EdgeBatch, frontier: np.ndarray) -> np.ndarray:
     return dec
 
 
-class ShardedIncrementalIndex(IncrementalIndex):
-    """The reference's per-shard index; not ported yet."""
+class ShardState(NamedTuple):
+    """One shard's slice of the maintained index state (a read-only view)."""
 
-    def __init__(self, *args, **kwargs):
-        raise later_slice("ShardedIncrementalIndex", "11 (multi-device)")
+    shard: int
+    v_base: int             # first owned vertex id
+    counts: torch.Tensor    # (n_owned, Lu) int32
+    deg: torch.Tensor       # (n_owned,) int32
+    cni: torch.Tensor       # (n_owned,) int64
+    cni_log: torch.Tensor   # (n_owned,) float32
+
+
+class ShardedIncrementalIndex(IncrementalIndex):
+    """Per-shard counts and CNI digests with a boundary-exchange update.
+
+    The state is one tensor set per shard, each owning the contiguous
+    vertex slice of the partition (normally the attached
+    ``ShardedGraphStore``'s plan), on the store's device.  A batch routes
+    every record to the owner shard(s) of its endpoints: an intra-shard
+    edge is a local ±1 on two of that shard's rows, a cross-shard edge is
+    sent to both owners (counted in ``stats.boundary_exchanged``).  Each
+    touched shard then re-encodes its own frontier with one ``cni_update``
+    launch under the base class's saturation rules, and ``rebuild``
+    encodes each shard's slice with its own ``cni_encode`` launch, so the
+    merged state equals an unsharded ``IncrementalIndex`` fed the same
+    batches, bit for bit.  ``freeze()`` returns one merged
+    ``IndexSnapshot``; ``counts``/``deg``/``cni``/``cni_log`` read as
+    merged copies.
+    """
+
+    def __init__(self, *, n_shards: int | None = None,
+                 d_max: int | None = None):
+        super().__init__(d_max=d_max)
+        self._n_shards_arg = n_shards
+        self._plan = None
+
+    # merged read-only views (freeze, checkpoints, parity checks)
+    counts = property(lambda self: torch.cat(self._sh_counts))
+    deg = property(lambda self: torch.cat(self._sh_deg))
+    cni = property(lambda self: torch.cat(self._sh_cni))
+    cni_log = property(lambda self: torch.cat(self._sh_log))
+
+    def rebuild(self, store) -> None:
+        plan = getattr(store, "plan", None)
+        if plan is None or (self._n_shards_arg is not None
+                            and plan.n_shards != self._n_shards_arg):
+            plan = vertex_partition(store.n_vertices, self._n_shards_arg or 1)
+        self._plan = plan
+        self._split(self._count_edges(store))
+        self._encode_all()
+        self.graph_stats = GraphStats.from_store(store)
+        self._epoch = store.epoch
+
+    def _split(self, counts: torch.Tensor) -> None:
+        """Take each shard's slice of a (V, Lu) count matrix as its own."""
+        self._sh_counts = [counts[lo:hi].clone() for lo, hi in
+                           map(self._plan.bounds, range(self._plan.n_shards))]
+
+    def _encode_all(self) -> None:
+        """Encode every shard's slice (one ``cni_encode`` launch a shard
+        that owns vertices)."""
+        enc = [self._encode_rows(c) for c in self._sh_counts]
+        self._sh_deg, self._sh_cni, self._sh_log = (
+            [e[k] for e in enc] for k in range(3))
+
+    # -- durable snapshots ---------------------------------------------------
+
+    def checkpoint_state(self):
+        """The merged state and the shard count; a restore re-splits it
+        along the restored store's plan."""
+        leaves, meta = super().checkpoint_state()
+        meta["n_shards"] = int(self._plan.n_shards)
+        return leaves, meta
+
+    @classmethod
+    def from_checkpoint_state(cls, leaves, meta, *, store=None, device=None):
+        """Restore over the restored ``ShardedGraphStore`` (its plan; its
+        device); a snapshot whose shard count differs fails closed."""
+        plan = getattr(store, "plan", None)
+        if plan is None:
+            raise CheckpointError(
+                "sharded index restore needs the restored ShardedGraphStore "
+                "(its partition plan) passed as store=")
+        if int(plan.n_shards) != int(meta.get("n_shards", -1)):
+            raise CheckpointError(
+                f"index snapshot has n_shards={meta.get('n_shards')} but the "
+                f"store plan has {plan.n_shards}")
+        flat = IncrementalIndex.from_checkpoint_state(leaves, meta,
+                                                      store=store,
+                                                      device=device)
+        idx = cls(n_shards=int(meta["n_shards"]))
+        merged = {k: getattr(flat, k) for k in ("deg", "cni", "cni_log")}
+        idx.__dict__.update({k: v for k, v in vars(flat).items()
+                             if k not in ("counts", *merged)})
+        idx._plan = plan
+        idx._split(flat.counts)
+        bounds = [plan.bounds(s) for s in range(plan.n_shards)]
+        idx._sh_deg, idx._sh_cni, idx._sh_log = (
+            [merged[k][lo:hi].clone() for lo, hi in bounds]
+            for k in ("deg", "cni", "cni_log"))
+        return idx
+
+    def shard_state(self, s: int) -> ShardState:
+        return ShardState(shard=s, v_base=self._plan.bounds(s)[0],
+                          counts=self._sh_counts[s], deg=self._sh_deg[s],
+                          cni=self._sh_cni[s], cni_log=self._sh_log[s])
+
+    # -- incremental maintenance --------------------------------------------
+
+    def apply_batch(self, store, applied: EdgeBatch) -> None:
+        """Route one applied batch to the owner shards (the boundary
+        exchange), then fold each touched shard's frontier with one
+        ``cni_update`` launch under the saturation rules."""
+        st = self.stats
+        st.applied_batches += 1
+        lo, hi = applied.src, applied.dst
+        sign = np.where(applied.insert, 1, -1).astype(np.int32)
+        st.edges_inserted += int(applied.insert.sum())
+        st.edges_deleted += int((~applied.insert).sum())
+        own_lo = lo // self._plan.v_local
+        own_hi = hi // self._plan.v_local
+        st.boundary_exchanged += int((own_lo != own_hi).sum())
+        # the planner's statistics are global: folded once
+        self._fold_graph_stats(store, lo, hi, sign)
+
+        lu = int(self.universe.size)
+        updates = []
+        for s in range(self._plan.n_shards):
+            base = self._plan.bounds(s)[0]
+            m1, m2 = own_lo == s, own_hi == s
+            rows = np.concatenate([lo[m1] - base, hi[m2] - base])
+            if not rows.size:
+                continue
+            cols = np.concatenate([self._col_of[hi[m1]], self._col_of[lo[m2]]])
+            sg = np.concatenate([sign[m1], sign[m2]])
+            frontier = np.unique(rows)
+            st.touched_vertices += int(frontier.size)
+            delta = torch.zeros(frontier.size * lu, dtype=torch.int32,
+                                device=self.device)
+            delta.index_add_(0, torch.as_tensor(
+                np.searchsorted(frontier, rows) * lu + cols,
+                device=self.device), torch.as_tensor(sg, device=self.device))
+            at = torch.as_tensor(frontier, device=self.device)
+            new_rows, new_deg, new_cni, new_log = update_ops.cni_update(
+                self._sh_counts[s][at], delta.view(frontier.size, lu),
+                self.d_max, self.max_p)
+            self._sh_counts[s][at] = new_rows
+            dec = np.zeros(frontier.size, dtype=bool)
+            dec[np.searchsorted(frontier, np.unique(rows[sg < 0]))] = True
+            updates.append((s, at, new_deg, new_cni, new_log, dec))
+        if not updates:
+            self._epoch = store.epoch
+            return
+        max_deg = int(torch.stack([u[2].max() for u in updates]).max())
+        if max_deg > self.d_max:
+            # the tables' degree bound is passed: grow it, re-encode all
+            self.d_max = ceil_pow2(max_deg)
+            self.max_p = default_max_p(self.d_max, lu)
+            self._encode_all()
+            st.full_rebuilds += 1
+            self._epoch = store.epoch
+            return
+        tallies = []
+        for s, at, new_deg, new_cni, new_log, dec in updates:
+            self._sh_deg[s][at] = new_deg
+            sat = self._sh_cni[s][at] == SAT64
+            dec = torch.as_tensor(dec, device=self.device)
+            skip = sat & ~dec  # stays saturated: provably no change
+            redo = ~skip
+            self._sh_cni[s][at[redo]] = new_cni[redo]
+            self._sh_log[s][at[redo]] = _canonical_log(new_cni, new_log)[redo]
+            tallies.append(torch.stack([skip.sum(), (sat & dec).sum(),
+                                        redo.sum()]))
+        n_skip, n_recompute, n_redo = torch.stack(tallies).sum(0).tolist()
+        st.saturated_skips += n_skip
+        st.saturated_recomputes += n_recompute
+        st.reencoded_vertices += n_redo
+        self._epoch = store.epoch
+
+    # -- views ---------------------------------------------------------------
+
+    def freeze(self) -> IndexSnapshot:
+        """One merged snapshot: every digest consumer reads a flat index
+        (the merged views are copies already)."""
+        return IndexSnapshot(
+            epoch=self._epoch, universe=self.universe, vlabels=self.vlabels,
+            counts=self.counts, deg=self.deg, cni=self.cni,
+            cni_log=self.cni_log, d_max=self.d_max, max_p=self.max_p,
+            stats=(self.graph_stats.copy()
+                   if self.graph_stats is not None else None))
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,10 @@ Three engines, all enumerating the same embeddings in the same row order:
   128-row-aligned buffer that one gather decodes.  On a CUDA device the
   count and emit passes are the hand-written kernels; on the CPU the same
   loop runs their plain versions.
+* ``sharded_device_join_search`` — the same join with the table split by
+  row across a mesh (``core/distributed.py``), one contiguous block per
+  shard, and a count-driven rebalancer; ``device_join_search`` is its
+  one-shard case.
 
 Row order is the flat row-major survivor order (lexicographic in the
 matching order), which is what keeps ``max_embeddings`` prefixes identical
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import obsv
+from repro_torch.core import distributed as dist
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph, as_numpy
 from repro_torch.kernels.embed_join import ops
@@ -286,10 +291,6 @@ def _restore_query_order(table: np.ndarray, order: Sequence[int]) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-# per-dispatch (R·C·J) validity-cell budget for the row slices of a level
-_DEVICE_JOIN_CELLS = 1 << 24
-
-
 def _align_rows(n: int) -> int:
     """128-row-aligned allocation for ``n`` live rows (at most 127 inert
     rows ride along)."""
@@ -309,30 +310,26 @@ def empty_enum_report() -> dict:
     * ``max_table_rows`` — peak true survivor count over all levels;
     * ``max_emit_rows``  — peak allocated (128-aligned) table rows;
     * ``scan_path``     — ``"device"``: the scan is an on-device cumsum;
-    * ``enum_shards``   — 1 (one device);
-    * ``emit_rows_max`` / ``emit_rows_min`` — emitted rows at the heaviest
-      level (equal on one device);
+    * ``enum_shards``   — the shard count (1 on one device);
+    * ``emit_rows_max`` / ``emit_rows_min`` — the heaviest and lightest
+      shard's emitted rows at the heaviest level (equal on one device);
     * ``rebalance_rounds`` / ``rebalance_rows_moved`` /
-      ``rebalance_seconds`` — 0 on one device;
+      ``rebalance_seconds`` — the rebalancer's work (0 on one device);
     * ``levels``        — per-level records ``{"level", "emit_rows",
       "rebalanced", "rebalance_seconds"}``.
     """
     return obsv.EnumReport.empty().to_dict()
 
 
-def _level_record(level: int, emit_rows) -> dict:
+def _level_record(level: int, emit_rows, *, rebalanced: bool = False,
+                  rebalance_seconds: float = 0.0) -> dict:
     """One ``report["levels"]`` entry (see ``empty_enum_report``)."""
     return {
         "level": level,
         "emit_rows": [int(x) for x in emit_rows],
-        "rebalanced": False,
-        "rebalance_seconds": 0.0,
+        "rebalanced": bool(rebalanced),
+        "rebalance_seconds": float(rebalance_seconds),
     }
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def device_join_search(
@@ -359,134 +356,215 @@ def device_join_search(
        128-aligned buffer, which one gather decodes into the next table.
 
     ``report``: optional dict filled with the ``empty_enum_report()``
-    schema on every exit path; the phase timings sync the device after each
-    phase.  With an active tracer each level emits ``enum.count`` /
-    ``enum.scan`` / ``enum.emit`` spans.
+    schema on every exit path.  With an active tracer each level emits
+    ``enum.count`` / ``enum.scan`` / ``enum.emit`` spans.  This is the
+    one-shard case of ``sharded_device_join_search``, which runs it.
     """
-    dev = resolve_device(device)
+    return _partitioned_join(data, query, candidates,
+                             dist.device_mesh(1, devices=resolve_device(device)),
+                             order=order, max_embeddings=max_embeddings,
+                             report=report, rebalance_threshold=1.0)
+
+
+def sharded_device_join_search(
+    data: Graph,
+    query: Graph,
+    candidates: np.ndarray,
+    *,
+    mesh,
+    axis: str = "data",
+    order: Sequence[int] | None = None,
+    max_embeddings: int | None = None,
+    report: dict | None = None,
+    rebalance_threshold: float = 1.25,
+) -> np.ndarray:
+    """``device_join_search`` partitioned across a ``ShardMesh``.
+
+    Equal to the single-device join bit for bit (rows, row order and the
+    ``max_embeddings`` prefix) at any shard count: the table is split by
+    row into one contiguous block per shard, in shard order, and children
+    of contiguous parents are contiguous in the flat row-major survivor
+    order, so the shards' live prefixes concatenate to the single-device
+    order, level after level.  Each shard runs the count
+    (``embed_join_count``) and emit (``embed_join_emit``) passes on its own
+    device against replicated candidate and edge-label tensors (one copy
+    per distinct device); the per-shard totals, the level's one host read,
+    number the next level's rows.
+
+    The count pass prices every parent's emit, so when the heaviest
+    shard's total exceeds ``rebalance_threshold ×`` the mean, the parents
+    are recut into weight-balanced contiguous blocks
+    (``enum_row_blocks``) and moved by ``exchange_rows``, which keeps the
+    order.  Each shard's buffers are sized to its own rows; the report's
+    ``max_emit_rows`` keeps the reference's meaning, ``n_shards ×`` the
+    largest shard's aligned block.  ``report`` is filled as in
+    ``device_join_search``, with the shard fields of
+    ``empty_enum_report()``.
+    """
+    dist.mesh_shards(mesh, axis)
+    return _partitioned_join(data, query, candidates, mesh, order=order,
+                             max_embeddings=max_embeddings, report=report,
+                             rebalance_threshold=rebalance_threshold)
+
+
+def _partitioned_join(data, query, candidates, mesh, *, order,
+                      max_embeddings, report, rebalance_threshold):
+    """The two-phase join over the shards of ``mesh`` (one shard: the
+    single-device join)."""
+    n_shards = mesh.n_shards
     cand = as_numpy(candidates)
     n_q = query.n_vertices
     q_adj = _host_adjacency(query)
     elab_np = _dense_edge_labels(data, data.n_vertices)
-    elab_dev = None
+    elab = None
     order = _matching_order(order, cand, q_adj, n_q)
     pos_of = {u: i for i, u in enumerate(order)}
 
     stats = empty_enum_report()
-    stats["enum_shards"] = 1
+    stats["enum_shards"] = n_shards
     stats["scan_path"] = "device"
     if report is not None:
         report.update(stats)
 
+    # seed: equal-rows contiguous blocks of u_0's candidate list
     seed_ids = np.nonzero(cand[:, order[0]])[0].astype(np.int32)
-    n_rows = int(seed_ids.size)
-    r0 = _align_rows(n_rows)
-    table_dev = torch.as_tensor(
-        np.pad(seed_ids, (0, r0 - n_rows)).reshape(r0, 1), device=dev
-    )
-    stats["max_table_rows"] = n_rows
-    stats["max_emit_rows"] = r0
-    stats["emit_rows_max"] = n_rows
-    stats["emit_rows_min"] = n_rows
+    total = int(seed_ids.size)
+    bounds = dist.enum_row_blocks(np.ones(total, np.int64), n_shards)
+    sizes = np.diff(bounds).astype(np.int64)
+    tables = []
+    for i, dev in enumerate(mesh.devices):
+        block = seed_ids[bounds[i] : bounds[i + 1]]
+        tables.append(torch.as_tensor(
+            np.pad(block, (0, _align_rows(block.size) - block.size)
+                   ).reshape(-1, 1), device=dev))
+    stats["max_table_rows"] = total
+    stats["max_emit_rows"] = n_shards * _align_rows(int(sizes.max()))
+    stats["emit_rows_max"] = int(sizes.max())
+    stats["emit_rows_min"] = int(sizes.min())
 
     for t in range(1, n_q):
         u = order[t]
         cand_ids = np.nonzero(cand[:, u])[0].astype(np.int32)
-        if n_rows == 0 or cand_ids.size == 0:
+        if total == 0 or cand_ids.size == 0:
             if report is not None:
                 report.update(stats)
             return np.zeros((0, n_q), dtype=np.int64)
         q_pos, q_lab, q_val = _level_constraints(q_adj, pos_of, u, t)
-
-        # 128-aligned candidate pad; padded slots hold vertex 0 and are
-        # masked by cand_valid
-        c_pad = max(128, -(-cand_ids.size // 128) * 128)
-        if elab_dev is None:
-            elab_dev = torch.as_tensor(elab_np, device=dev)
         j = int(q_pos.size)
-        cand_dev = torch.as_tensor(np.pad(cand_ids, (0, c_pad - cand_ids.size)),
-                                   device=dev)
-        cand_valid = torch.arange(c_pad, device=dev) < cand_ids.size
-        qp, ql, qv = (torch.as_tensor(x, device=dev) for x in (q_pos, q_lab, q_val))
+        c_pad = max(128, -(-cand_ids.size // 128) * 128)
+        if elab is None:
+            elab = dist.replicate(torch.as_tensor(elab_np), mesh)
+        level = (
+            dist.replicate(torch.as_tensor(
+                np.pad(cand_ids, (0, c_pad - cand_ids.size))), mesh),
+            dist.replicate(torch.arange(c_pad) < cand_ids.size, mesh),
+            elab,
+            *(dist.replicate(torch.as_tensor(x), mesh)
+              for x in (q_pos, q_lab, q_val)),
+        )
         stats["device_rounds"] += 1
+        rows_per = dist.enum_rows_per(c_pad, j)
+        rebalanced = False
+        rebal_dt = 0.0
 
-        # cell-budgeted row slices bound each launch's (R, C, J) work; the
-        # table allocation is a multiple of 128, so slices stay aligned
-        rows_per = _DEVICE_JOIN_CELLS // max(1, c_pad * j)
-        rows_per = max(256, 1 << max(0, rows_per.bit_length() - 1))
-        rows_per = min(rows_per, 4096)
-        active = table_dev
-        slices = []
-        for lo in range(0, n_rows, rows_per):
-            sl = active[lo : lo + rows_per]
-            n_live = min(n_rows - lo, rows_per)
-            row_valid = torch.arange(sl.shape[0], device=dev) < n_live
-            slices.append((lo, sl, row_valid))
-
-        # -- count: per-slice survivor counts, no table writes
+        # -- count, with the scan fused per shard: only (D,) totals sync
         t0 = time.perf_counter()
-        counts = torch.cat([
-            ops.embed_join_count(sl, rv, cand_dev, cand_valid, elab_dev,
-                                 qp, ql, qv)
-            for _, sl, rv in slices
-        ])
-        if report is not None:
-            _sync(dev)
+        counts, row_off, totals = dist.enum_count(tables, sizes, level,
+                                                  rows_per)
+        shard_tot = dist.host_values(totals)
         t1 = time.perf_counter()
         stats["count_seconds"] += t1 - t0
-        obsv.span_at("enum.count", t0, t1, level=t, rows=n_rows)
+        obsv.span_at("enum.count", t0, t1, level=t, rows=total,
+                     shards=n_shards)
 
-        # -- scan: on-device exclusive prefix sum; one scalar syncs
         t0 = time.perf_counter()
-        inclusive = counts.cumsum(0)  # int64
-        row_off = inclusive - counts
-        total = int(inclusive[-1])
-        t1 = time.perf_counter()
-        stats["scan_seconds"] += t1 - t0
-        obsv.span_at("enum.scan", t0, t1, level=t)
-
-        if total == 0:
-            table_dev = torch.zeros((1, t + 1), dtype=torch.int32, device=dev)
-            n_rows = 0
-            stats["levels"].append(_level_record(t, [0]))
+        new_total = int(shard_tot.sum())
+        if new_total == 0:
+            t1 = time.perf_counter()
+            stats["scan_seconds"] += t1 - t0
+            obsv.span_at("enum.scan", t0, t1, level=t)
+            total = 0
+            sizes = np.zeros(n_shards, np.int64)
+            stats["levels"].append(_level_record(t, [0] * n_shards))
             continue
 
-        # -- emit: scatter survivors into the exactly-sized buffer, then
-        # decode cell ids into the next table with one gather
+        # -- rebalance: recut parents by exact child weights when the
+        # heaviest shard's emit passes the threshold over the mean
+        if (n_shards > 1
+                and shard_tot.max() * n_shards
+                > rebalance_threshold * new_total):
+            t_r = time.perf_counter()
+            weights = np.concatenate([
+                c[: sizes[i]].cpu().numpy().astype(np.int64)
+                for i, c in enumerate(counts)])
+            new_bounds = dist.enum_row_blocks(weights, n_shards)
+            if not np.array_equal(new_bounds, bounds):
+                new_sizes = np.diff(new_bounds).astype(np.int64)
+                caps = [_align_rows(n) for n in new_sizes]
+                tables = dist.exchange_rows(tables, bounds, new_bounds, mesh,
+                                            caps)
+                # the scan's offsets follow from the weights on the host:
+                # no recount on the devices
+                row_off = []
+                for i, dev in enumerate(mesh.devices):
+                    w = weights[new_bounds[i] : new_bounds[i + 1]]
+                    off = np.zeros(caps[i], np.int64)
+                    off[: w.size] = np.cumsum(w) - w
+                    row_off.append(torch.as_tensor(off, device=dev))
+                    shard_tot[i] = w.sum()
+                moved = int(sum(
+                    max(0, new_sizes[i]
+                        - max(0, min(new_bounds[i + 1], bounds[i + 1])
+                              - max(new_bounds[i], bounds[i])))
+                    for i in range(n_shards)))
+                bounds, sizes = new_bounds, new_sizes
+                rebalanced = True
+                rebal_dt = time.perf_counter() - t_r
+                stats["rebalance_rounds"] += 1
+                stats["rebalance_rows_moved"] += moved
+                stats["rebalance_seconds"] += rebal_dt
+                obsv.span_at("enum.rebalance", t_r, t_r + rebal_dt,
+                             level=t, rows_moved=moved)
+        t1 = time.perf_counter()
+        stats["scan_seconds"] += t1 - t0 - rebal_dt
+        obsv.span_at("enum.scan", t0, t1, level=t)
+
+        # -- emit: each shard into its exactly sized block
         t0 = time.perf_counter()
-        out_cap = _align_rows(total)
-        idx_map = torch.zeros(out_cap, dtype=torch.int64, device=dev)
-        for lo, sl, rv in slices:
-            ops.embed_join_emit(idx_map, sl, rv, cand_dev, cand_valid,
-                                elab_dev, qp, ql, qv,
-                                row_off[lo : lo + sl.shape[0]], lo)
-        r_idx = idx_map // c_pad
-        c_idx = idx_map - r_idx * c_pad
-        new_table = torch.cat([active[r_idx], cand_dev[c_idx][:, None]], dim=1)
-        # slots past the total hold cell 0 (a valid address): zero them
-        slot_ok = torch.arange(out_cap, device=dev) < total
-        table_dev = torch.where(slot_ok[:, None], new_table, 0)
+        out_cap = _align_rows(int(shard_tot.max()))
+        tables = dist.enum_emit(tables, sizes, row_off, shard_tot,
+                                [_align_rows(n) for n in shard_tot], level,
+                                c_pad, rows_per)
         if report is not None:
-            _sync(dev)
+            dist.sync(mesh)
         t1 = time.perf_counter()
         stats["emit_seconds"] += t1 - t0
-        obsv.span_at("enum.emit", t0, t1, level=t, rows=total)
+        obsv.span_at("enum.emit", t0, t1, level=t, rows=new_total)
 
-        n_rows = total
+        # advance: children become the next level's contiguous blocks
+        sizes = shard_tot.astype(np.int64)
+        bounds = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        total = new_total
         stats["max_table_rows"] = max(stats["max_table_rows"], total)
-        stats["max_emit_rows"] = max(stats["max_emit_rows"], out_cap)
-        stats["levels"].append(_level_record(t, [total]))
-        if total > stats["emit_rows_max"]:
-            stats["emit_rows_max"] = total
-            stats["emit_rows_min"] = total
+        stats["max_emit_rows"] = max(stats["max_emit_rows"],
+                                     n_shards * out_cap)
+        stats["levels"].append(_level_record(
+            t, sizes, rebalanced=rebalanced, rebalance_seconds=rebal_dt))
+        if int(sizes.max()) > stats["emit_rows_max"]:
+            stats["emit_rows_max"] = int(sizes.max())
+            stats["emit_rows_min"] = int(sizes.min())
 
-    n_keep = n_rows
-    if max_embeddings is not None:
-        n_keep = min(n_keep, max_embeddings)
-    table = table_dev[:n_keep].cpu().numpy()
+    # assembly: the live prefixes in shard order are the global row order,
+    # so truncation is a prefix
+    n_keep = total if max_embeddings is None else min(total, max_embeddings)
+    if total == 0:
+        flat = np.zeros((0, n_q), np.int32)
+    else:
+        flat = np.concatenate([tab[: sizes[i]].cpu().numpy()
+                               for i, tab in enumerate(tables)])[:n_keep]
     if report is not None:
         report.update(stats)
-    return _restore_query_order(table, order)
+    return _restore_query_order(flat, order)
 
 
 def embeddings_equal(a: np.ndarray, b: np.ndarray) -> bool:

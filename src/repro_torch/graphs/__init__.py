@@ -34,6 +34,7 @@ from repro_torch.graphs.store import (
     GraphSnapshot,
     GraphStore,
     ShardedGraphStore,
+    ShardStats,
     StoreStats,
     as_snapshot,
     make_edge_batch,
@@ -42,7 +43,7 @@ from repro_torch.graphs.store import (
 __all__ = [
     "ApplyResult", "ChunkCache", "ChunkDirWriter", "ChunkIOError",
     "EdgeBatch", "Graph", "GraphSnapshot", "GraphStore", "OocSnapshot",
-    "OutOfCoreGraphStore", "PAPER_DATASETS", "ShardedGraphStore",
+    "OutOfCoreGraphStore", "PAPER_DATASETS", "ShardStats", "ShardedGraphStore",
     "StoreStats", "as_numpy", "as_snapshot", "build_graph",
     "graph_from_numpy", "graph_to", "induced_subgraph", "iter_update_batches",
     "load_manifest", "make_edge_batch", "max_degree", "paper_dataset",

@@ -710,6 +710,6 @@ class OutOfCoreGraphStore(BaseGraphStore):
                       src=empty, dst=empty.clone(),
                       elabels=torch.zeros(0, dtype=torch.int32,
                                           device=self.device))
-            snap = GraphSnapshot(self.epoch, g, idx, handle)
+            snap = GraphSnapshot(self.epoch, g, idx, ooc=handle)
             self._snapshots[self.epoch] = snap
         return snap

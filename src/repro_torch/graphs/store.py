@@ -25,9 +25,14 @@ built on the store's device (``None`` means ``"cuda"``).
 ``checkpoint_state`` / ``GraphStore.from_checkpoint_state`` carry the
 logical state (the alive canonical edges, in table order, and the vertex
 labels) through the durable tier (``serve/persist.py``), with the
-reference's leaf names and meta.  The vertex-partitioned
-``ShardedGraphStore`` belongs to a later slice of the port and raises
-``NotImplementedError`` naming its ROADMAP item.
+reference's leaf names and meta.
+
+``ShardedGraphStore`` keeps the same contract over a vertex-partitioned
+table: each canonical edge (lo < hi) lives in the table of ``owner(lo)``
+(the partition of ``core/distributed.py``), a cross-shard edge registers
+its remote endpoint as a ghost on both owners, each shard logs one delta
+row per batch that touched it, and snapshots carry the per-shard tables
+(``GraphSnapshot.shards``) that the partitioned engines consume.
 """
 
 from __future__ import annotations
@@ -112,15 +117,18 @@ class GraphSnapshot(NamedTuple):
 
     ``graph`` is a port ``Graph`` on the store's device; ``index`` is a
     frozen ``core.incremental.IndexSnapshot`` when an incremental index is
-    attached, else None.  ``ooc`` is filled by ``OutOfCoreGraphStore``
-    alone: a ``graphs.ooc.OocSnapshot`` handle over the epoch's on-disk
-    generation, whose ``graph`` then holds the labels and no edges (the
-    engines fetch the edges a query's prefilter touches).
+    attached, else None.  ``shards`` is filled by ``ShardedGraphStore``
+    alone: a tuple of per-shard ``(lo, hi, lab)`` host arrays of canonical
+    edges.  ``ooc`` is filled by ``OutOfCoreGraphStore`` alone: a
+    ``graphs.ooc.OocSnapshot`` handle over the epoch's on-disk generation,
+    whose ``graph`` then holds the labels and no edges (the engines fetch
+    the edges a query's prefilter touches).
     """
 
     epoch: int
     graph: Graph
     index: Optional[object]
+    shards: Optional[tuple] = None
     ooc: Optional[object] = None
 
 
@@ -132,14 +140,6 @@ class StoreStats(NamedTuple):
     n_batches_applied: int
     n_compactions: int
     n_snapshots_cached: int
-
-
-def later_slice(what: str, item: str) -> NotImplementedError:
-    """The error for a part of the reference a later slice of the port
-    brings (raised by the store, the index and the engines)."""
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with ROADMAP.md queue A item "
-        f"{item}")
 
 
 class BaseGraphStore:
@@ -233,7 +233,11 @@ class BaseGraphStore:
             "degree_cap": self.degree_cap,
             "compact_every": self.compact_every,
         }
+        meta.update(self._checkpoint_extra_meta())
         return leaves, meta
+
+    def _checkpoint_extra_meta(self) -> dict:
+        return {}
 
     # -- mutation ------------------------------------------------------------
 
@@ -316,6 +320,10 @@ class BaseGraphStore:
     def _n_edges_dead(self) -> int:
         raise NotImplementedError
 
+    def _shard_tables(self) -> Optional[tuple]:
+        """Per-shard snapshot payload (None for an unsharded store)."""
+        return None
+
     def has_edges(self, u, v) -> np.ndarray:
         """Vectorised ``has_edge`` over arrays of endpoints."""
         u = np.asarray(u, dtype=np.int64)
@@ -337,7 +345,7 @@ class BaseGraphStore:
                             np.stack([lo, hi], axis=1), lab,
                             device=self.device)
             idx = self._index.freeze() if self._index is not None else None
-            snap = GraphSnapshot(self.epoch, g, idx)
+            snap = GraphSnapshot(self.epoch, g, idx, self._shard_tables())
             self._snapshots[self.epoch] = snap
         return snap
 
@@ -382,19 +390,87 @@ class BaseGraphStore:
         )
 
 
+class _EdgeTable:
+    """A canonical edge table (lo < hi) in append order with alive flags,
+    and a sorted int64 key index (``lo * V + hi``, the row of each key)
+    searched with ``searchsorted``."""
+
+    def __init__(self, n_vertices: int):
+        self.n_vertices = n_vertices
+        self.lo = np.zeros(0, dtype=np.int64)
+        self.hi = np.zeros(0, dtype=np.int64)
+        self.lab = np.zeros(0, dtype=np.int64)
+        self.alive = np.zeros(0, dtype=bool)
+        self._keys = np.zeros(0, dtype=np.int64)
+        self._rows = np.zeros(0, dtype=np.int64)
+
+    def lookup(self, keys: np.ndarray) -> np.ndarray:
+        """The row of each key, -1 when absent."""
+        rows = np.full(keys.shape, -1, dtype=np.int64)
+        if self._keys.size:
+            pos = np.minimum(np.searchsorted(self._keys, keys),
+                             self._keys.size - 1)
+            hit = self._keys[pos] == keys
+            rows[hit] = self._rows[pos[hit]]
+        return rows
+
+    def row_alive(self, rows: np.ndarray) -> np.ndarray:
+        alive = np.zeros(rows.shape, dtype=bool)
+        hit = rows >= 0
+        alive[hit] = self.alive[rows[hit]]
+        return alive
+
+    def commit(self, lo, hi, lab, ins, rows) -> None:
+        """Apply planned records (``rows``: each record's row, -1 when
+        new): revive re-inserted rows with their label, clear deleted ones
+        (writing the label each removed into ``lab``), append new rows."""
+        revive = ins & (rows >= 0)
+        self.alive[rows[revive]] = True
+        self.lab[rows[revive]] = lab[revive]
+        dele = ~ins
+        self.alive[rows[dele]] = False
+        lab[dele] = self.lab[rows[dele]]
+        new = ins & (rows < 0)
+        if new.any():
+            self.append_rows(lo[new], hi[new], lab[new])
+
+    def append_rows(self, lo, hi, lab) -> None:
+        """Append brand-new alive rows and merge their keys into the index."""
+        base = self.alive.size
+        keys = lo * self.n_vertices + hi
+        order = np.argsort(keys)
+        at = np.searchsorted(self._keys, keys[order])
+        self._keys = np.insert(self._keys, at, keys[order])
+        self._rows = np.insert(self._rows, at, base + order)
+        self.lo = np.concatenate([self.lo, lo])
+        self.hi = np.concatenate([self.hi, hi])
+        self.lab = np.concatenate([self.lab, lab])
+        self.alive = np.concatenate([self.alive, np.ones(lo.size, dtype=bool)])
+
+    def compact(self) -> int:
+        """Drop dead rows, keeping the order of the rest; returns how many."""
+        dead = int((~self.alive).sum())
+        if dead == 0:
+            return 0
+        keep = self.alive
+        self.lo, self.hi, self.lab = self.lo[keep], self.hi[keep], self.lab[keep]
+        self.alive = np.ones(self.lo.size, dtype=bool)
+        keys = self.lo * self.n_vertices + self.hi
+        self._rows = np.argsort(keys)
+        self._keys = keys[self._rows]
+        return dead
+
+    def alive_rows(self):
+        keep = self.alive
+        return self.lo[keep], self.hi[keep], self.lab[keep]
+
+
 class GraphStore(BaseGraphStore):
     """Mutable vertex-labelled graph with epoch-versioned snapshots."""
 
     def __init__(self, n_vertices, vlabels, **kwargs):
         super().__init__(n_vertices, vlabels, **kwargs)
-        # canonical edge table (lo < hi) in append order, with alive flags
-        self._lo = np.zeros(0, dtype=np.int64)
-        self._hi = np.zeros(0, dtype=np.int64)
-        self._lab = np.zeros(0, dtype=np.int64)
-        self._alive = np.zeros(0, dtype=bool)
-        # sorted keys lo * V + hi of every row, and the row of each key
-        self._keys = np.zeros(0, dtype=np.int64)
-        self._rows = np.zeros(0, dtype=np.int64)
+        self._table = _EdgeTable(self.n_vertices)
 
     @classmethod
     def from_checkpoint_state(cls, leaves, meta, *, device=None) -> "GraphStore":
@@ -405,56 +481,26 @@ class GraphStore(BaseGraphStore):
         store = cls(n, vlab, degree_cap=meta.get("degree_cap"),
                     compact_every=int(meta.get("compact_every", 64)),
                     device=device)
-        store._append_rows(lo, hi, lab)
+        store._table.append_rows(lo, hi, lab)
         store._add_degrees(lo, hi, 1)
         store.epoch = int(meta["epoch"])
         return store
 
     def _lookup(self, keys):
-        rows = np.full(keys.shape, -1, dtype=np.int64)
-        if self._keys.size:
-            pos = np.minimum(np.searchsorted(self._keys, keys),
-                             self._keys.size - 1)
-            hit = self._keys[pos] == keys
-            rows[hit] = self._rows[pos[hit]]
-        return rows
+        return self._table.lookup(keys)
 
     def _row_alive(self, rows):
-        alive = np.zeros(rows.shape, dtype=bool)
-        hit = rows >= 0
-        alive[hit] = self._alive[rows[hit]]
-        return alive
+        return self._table.row_alive(rows)
 
     def _apply_planned(self, plan, lo, hi, lab, ins, rows):
-        p_lo, p_hi, p_ins, p_rows = lo[plan], hi[plan], ins[plan], rows[plan]
+        p_lo, p_hi, p_ins = lo[plan], hi[plan], ins[plan]
         p_lab = lab[plan].copy()
-        revive = p_ins & (p_rows >= 0)
-        self._alive[p_rows[revive]] = True
-        self._lab[p_rows[revive]] = p_lab[revive]
-        dele = ~p_ins
-        self._alive[p_rows[dele]] = False
-        p_lab[dele] = self._lab[p_rows[dele]]  # report the label removed
-        new = p_ins & (p_rows < 0)
-        if new.any():
-            self._append_rows(p_lo[new], p_hi[new], p_lab[new])
+        self._table.commit(p_lo, p_hi, p_lab, p_ins, rows[plan])
         self._add_degrees(p_lo[p_ins], p_hi[p_ins], 1)
-        self._add_degrees(p_lo[dele], p_hi[dele], -1)
+        self._add_degrees(p_lo[~p_ins], p_hi[~p_ins], -1)
         applied = EdgeBatch(src=p_lo, dst=p_hi, elabels=p_lab, insert=p_ins,
                             valid=np.ones(plan.size, dtype=bool))
-        return applied, int(p_ins.sum()), int(dele.sum())
-
-    def _append_rows(self, lo, hi, lab):
-        """Append brand-new alive rows and merge their keys into the index."""
-        base = self._alive.size
-        keys = lo * self.n_vertices + hi
-        order = np.argsort(keys)
-        at = np.searchsorted(self._keys, keys[order])
-        self._keys = np.insert(self._keys, at, keys[order])
-        self._rows = np.insert(self._rows, at, base + order)
-        self._lo = np.concatenate([self._lo, lo])
-        self._hi = np.concatenate([self._hi, hi])
-        self._lab = np.concatenate([self._lab, lab])
-        self._alive = np.concatenate([self._alive, np.ones(lo.size, dtype=bool)])
+        return applied, int(p_ins.sum()), int((~p_ins).sum())
 
     def compact(self) -> int:
         """Drop dead rows from the edge table; returns rows reclaimed.
@@ -462,30 +508,20 @@ class GraphStore(BaseGraphStore):
         Storage maintenance only: the logical edge set, the epoch and the
         attached index are unchanged.
         """
-        dead = int((~self._alive).sum())
-        if dead == 0:
-            return 0
-        keep = self._alive
-        self._lo = self._lo[keep]
-        self._hi = self._hi[keep]
-        self._lab = self._lab[keep]
-        self._alive = np.ones(self._lo.size, dtype=bool)
-        keys = self._lo * self.n_vertices + self._hi
-        self._rows = np.argsort(keys)
-        self._keys = keys[self._rows]
-        self._n_compactions += 1
+        dead = self._table.compact()
+        if dead:
+            self._n_compactions += 1
         return dead
 
     def alive_edges(self):
-        keep = self._alive
-        return self._lo[keep], self._hi[keep], self._lab[keep]
+        return self._table.alive_rows()
 
     @property
     def n_edges(self) -> int:
-        return int(self._alive.sum())
+        return int(self._table.alive.sum())
 
     def _n_edges_dead(self) -> int:
-        return int((~self._alive).sum())
+        return int((~self._table.alive).sum())
 
 
 def _ckpt_restore_arrays(leaves: dict, meta: dict):
@@ -515,20 +551,191 @@ def _ckpt_restore_arrays(leaves: dict, meta: dict):
     return n, vlab, lo, hi, lab
 
 
+class _ShardTable(_EdgeTable):
+    """One shard's slice of the canonical edge table: the edges whose
+    ``lo`` endpoint the shard owns.
+
+    ``ghost_refs[v]`` counts the alive local edges that reference remote
+    vertex ``v`` (either direction); ``delta_log`` holds one ``(epoch,
+    n_inserted, n_deleted, n_boundary)`` row per batch that touched the
+    shard and is cleared on compaction (the table is then the merged
+    state).
+    """
+
+    def __init__(self, n_vertices: int):
+        super().__init__(n_vertices)
+        self.ghost_refs = np.zeros(n_vertices, dtype=np.int32)
+        self.delta_log: list[tuple[int, int, int, int]] = []
+
+    @property
+    def ghosts(self) -> dict:
+        """``{remote vertex: alive edges referencing it}``."""
+        v = np.flatnonzero(self.ghost_refs)
+        return dict(zip(v.tolist(), self.ghost_refs[v].tolist()))
+
+    def compact(self) -> int:
+        self.delta_log.clear()
+        return super().compact()
+
+
+class ShardStats(NamedTuple):
+    shard: int
+    n_vertices_owned: int
+    n_edges: int           # alive canonical edges stored here (owner of lo)
+    n_ghosts: int          # distinct remote vertices referenced by alive edges
+    n_boundary_edges: int  # alive edges with endpoints on two shards
+    n_log_entries: int     # delta-log rows since the last compaction
+
+
 class ShardedGraphStore(BaseGraphStore):
-    """The vertex-partitioned store of the reference; not ported yet."""
+    """Vertex-partitioned ``GraphStore``: the same contract, sharded storage.
 
-    def __init__(self, *args, **kwargs):
-        raise later_slice("ShardedGraphStore", "11 (multi-device)")
+    The vertex axis splits into ``n_shards`` contiguous owner slices
+    (``core/distributed.py::vertex_partition``).  Each canonical edge
+    lives in the table of ``owner(lo)``; a cross-shard edge registers its
+    remote endpoint in both owners' ghost counts, which is the set of
+    remote vertices each shard's count rows depend on.  ``apply``
+    validates globally (the same atomic degree-cap check), commits per
+    shard and logs one delta row per touched shard; snapshots carry the
+    per-shard tables.  The same batches applied to a ``GraphStore`` and a
+    ``ShardedGraphStore`` give bit-identical snapshot graphs and degrees.
+    A probe's row is encoded ``row * n_shards + shard``.
+    """
 
-    def checkpoint_state(self):
-        raise later_slice("ShardedGraphStore.checkpoint_state",
-                          "11 (multi-device)")
+    def __init__(self, n_vertices, vlabels, *, n_shards: int, **kwargs):
+        super().__init__(n_vertices, vlabels, **kwargs)
+        # imported here: the core package imports this module
+        from repro_torch.core.distributed import vertex_partition
+
+        self.plan = vertex_partition(self.n_vertices, n_shards)
+        self.n_shards = int(n_shards)
+        self._shards = [_ShardTable(self.n_vertices)
+                        for _ in range(self.n_shards)]
+        self._n_boundary_alive = 0    # alive cross-shard edges right now
+        self._n_boundary_records = 0  # cumulative boundary records applied
+
+    _CKPT_KIND = "sharded"
+
+    def _checkpoint_extra_meta(self) -> dict:
+        return {"n_shards": self.n_shards}
 
     @classmethod
-    def from_checkpoint_state(cls, leaves, meta, *, device=None):
-        raise later_slice("ShardedGraphStore.from_checkpoint_state",
-                          "11 (multi-device)")
+    def from_checkpoint_state(cls, leaves, meta, *,
+                              device=None) -> "ShardedGraphStore":
+        """Rebuild from ``checkpoint_state()`` output: the canonical edge
+        set re-buckets through one seeding ``apply`` (as ``from_graph``
+        does), so ghosts and boundary counters are rebuilt exactly."""
+        n, vlab, lo, hi, lab = _ckpt_restore_arrays(leaves, meta)
+        if "n_shards" not in meta:
+            raise CheckpointError("sharded store snapshot has no n_shards in "
+                                  "its meta")
+        store = cls(n, vlab, n_shards=int(meta["n_shards"]),
+                    degree_cap=meta.get("degree_cap"),
+                    compact_every=int(meta.get("compact_every", 64)),
+                    device=device)
+        if lo.size:
+            store.apply(make_edge_batch(np.stack([lo, hi], axis=1), lab))
+            store._seed_reset()
+        store.epoch = int(meta["epoch"])
+        return store
+
+    def _lookup(self, keys):
+        rows = np.full(keys.shape, -1, dtype=np.int64)
+        owner = (keys // self.n_vertices) // self.plan.v_local
+        for s in np.unique(owner):
+            m = owner == s
+            r = self._shards[s].lookup(keys[m])
+            rows[m] = np.where(r >= 0, r * self.n_shards + s, -1)
+        return rows
+
+    def _row_alive(self, rows):
+        alive = np.zeros(rows.shape, dtype=bool)
+        hit = rows >= 0
+        shard = rows % self.n_shards
+        for s in np.unique(shard[hit]):
+            m = hit & (shard == s)
+            alive[m] = self._shards[s].alive[rows[m] // self.n_shards]
+        return alive
+
+    def _apply_planned(self, plan, lo, hi, lab, ins, rows):
+        p_lo, p_hi, p_ins, p_rows = lo[plan], hi[plan], ins[plan], rows[plan]
+        p_lab = lab[plan].copy()
+        s_lo = p_lo // self.plan.v_local
+        s_hi = p_hi // self.plan.v_local
+        cross = s_lo != s_hi
+        local = np.where(p_rows >= 0, p_rows // self.n_shards, -1)
+        sign = np.where(p_ins, 1, -1).astype(np.int32)
+        next_epoch = self.epoch + 1
+        for s, tab in enumerate(self._shards):
+            mine = s_lo == s
+            if mine.any():
+                mine_lab = p_lab[mine]
+                tab.commit(p_lo[mine], p_hi[mine], mine_lab, p_ins[mine],
+                           local[mine])
+                p_lab[mine] = mine_lab  # the labels deletes removed
+            # ghosts: owner(lo) references hi, owner(hi) references lo
+            g_lo, g_hi = mine & cross, (s_hi == s) & cross
+            tab.ghost_refs += np.bincount(
+                np.concatenate([p_hi[g_lo], p_lo[g_hi]]),
+                weights=np.concatenate([sign[g_lo], sign[g_hi]]),
+                minlength=self.n_vertices).astype(np.int32)
+            touched = mine | (s_hi == s)
+            if touched.any():
+                tab.delta_log.append((
+                    next_epoch, int((touched & p_ins).sum()),
+                    int((touched & ~p_ins).sum()),
+                    int((touched & cross).sum())))
+        self._add_degrees(p_lo[p_ins], p_hi[p_ins], 1)
+        self._add_degrees(p_lo[~p_ins], p_hi[~p_ins], -1)
+        self._n_boundary_alive += int(sign[cross].sum())
+        self._n_boundary_records += int(cross.sum())
+        applied = EdgeBatch(src=p_lo, dst=p_hi, elabels=p_lab, insert=p_ins,
+                            valid=np.ones(plan.size, dtype=bool))
+        return applied, int(p_ins.sum()), int((~p_ins).sum())
+
+    def _seed_reset(self) -> None:
+        super()._seed_reset()
+        for tab in self._shards:  # the seed is base state, not a delta
+            tab.delta_log.clear()
+
+    def compact(self) -> int:
+        dead = sum(tab.compact() for tab in self._shards)
+        if dead:
+            self._n_compactions += 1
+        return dead
+
+    def alive_edges(self):
+        rows = [tab.alive_rows() for tab in self._shards]
+        return tuple(np.concatenate([r[k] for r in rows]) for k in range(3))
+
+    @property
+    def n_edges(self) -> int:
+        return int(sum(int(tab.alive.sum()) for tab in self._shards))
+
+    def _n_edges_dead(self) -> int:
+        return int(sum(int((~tab.alive).sum()) for tab in self._shards))
+
+    def _shard_tables(self) -> tuple:
+        return tuple(tab.alive_rows() for tab in self._shards)
+
+    def shard_stats(self) -> list[ShardStats]:
+        out = []
+        for i, tab in enumerate(self._shards):
+            lo, hi = self.plan.bounds(i)
+            keep = tab.alive
+            boundary = int((tab.hi[keep] // self.plan.v_local
+                            != tab.lo[keep] // self.plan.v_local).sum())
+            out.append(ShardStats(
+                shard=i, n_vertices_owned=hi - lo, n_edges=int(keep.sum()),
+                n_ghosts=int(np.count_nonzero(tab.ghost_refs)),
+                n_boundary_edges=boundary,
+                n_log_entries=len(tab.delta_log)))
+        return out
+
+    @property
+    def n_boundary_edges(self) -> int:
+        """Alive edges whose endpoints live on different shards."""
+        return self._n_boundary_alive
 
 
 def as_snapshot(data) -> GraphSnapshot:

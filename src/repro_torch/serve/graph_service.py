@@ -45,8 +45,12 @@ A fixed pool of ``max_slots`` query slots with static padded shapes
 
 A service built from a ``Graph`` or a snapshot runs on ``device``
 (``None`` means ``"cuda"``); a store-backed one runs where its store does.
-``GraphServiceConfig.mesh`` belongs to a later slice of the port and
-raises ``NotImplementedError`` naming its item.
+With ``GraphServiceConfig(mesh=...)`` (a ``core.distributed.ShardMesh``)
+each tick's round runs vertex-partitioned
+(``sharded_batched_ilgf_round``) over the pinned epoch's shard buckets,
+prepared once per epoch (from a ``ShardedGraphStore``'s own tables when
+the snapshot carries them), and with ``enumerator="device"`` each finalize
+enumerates row-partitioned; results equal the unmeshed service's.
 """
 
 from __future__ import annotations
@@ -68,18 +72,18 @@ from repro_torch.core.batch_engine import (
     prepare_padded_query,
 )
 from repro_torch.core.cni import default_max_p
+from repro_torch.core.distributed import (
+    mesh_shards,
+    prepare_sharded_edges,
+    sharded_batched_ilgf_round,
+)
 from repro_torch.core.engine import QueryStats, search_filtered
 from repro_torch.core.incremental import store_prefilter
 from repro_torch.core.planner import QueryPlanner
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph, graph_to, max_degree, to_host
 from repro_torch.graphs.io import ChunkIOError
-from repro_torch.graphs.store import (
-    BaseGraphStore,
-    GraphSnapshot,
-    as_snapshot,
-    later_slice,
-)
+from repro_torch.graphs.store import BaseGraphStore, GraphSnapshot, as_snapshot
 from repro_torch.serve.persist import ServiceCheckpointer
 
 
@@ -99,8 +103,12 @@ class GraphServiceConfig:
     enumerator: str = _ENGINE_CONFIG.enumerator
     search_vertex_cap: int = 8192
     max_rounds_per_query: int = 1_000  # safety valve: finalize early (sound)
-    # the reference's device mesh; it comes with ROADMAP A11 and raises here
+    # a core.distributed.ShardMesh: ticks run the vertex-partitioned round,
+    # finalize with enumerator="device" the row-partitioned join (results
+    # equal either way); a ShardedGraphStore with the mesh's shard count
+    # gives its per-shard tables directly
     mesh: object = None
+    shard_axis: str = _ENGINE_CONFIG.distributed_axis
     # cost-based matching orders (core/planner.py): one QueryPlanner, hence
     # one epoch-aware plan cache, shared across every tick and slot;
     # ``planner`` overrides it with a caller-owned instance
@@ -190,6 +198,7 @@ class FailedRequest(NamedTuple):
 class _EpochEntry(NamedTuple):
     snapshot: GraphSnapshot
     host_graph: Graph  # numpy copy of the snapshot graph, for the search
+    sharded: Optional[tuple] = None  # (ShardedEdges, PartitionPlan), meshed
 
 
 class GraphQueryService:
@@ -208,9 +217,14 @@ class GraphQueryService:
             data if isinstance(data, BaseGraphStore) else None)
         snap = as_snapshot(data)
         self.cfg = cfg or GraphServiceConfig()
-        if self.cfg.mesh is not None:
-            raise later_slice("GraphServiceConfig.mesh", "11 (multi-device)")
         self._ooc = snap.ooc
+        if self.cfg.mesh is not None:
+            mesh_shards(self.cfg.mesh, self.cfg.shard_axis)
+        if self._ooc is not None and self.cfg.mesh is not None:
+            raise ValueError(
+                "out-of-core stores run single-host: the chunk prefilter "
+                "fetches a per-epoch restricted edge set that is not "
+                "mesh-partitioned; drop GraphServiceConfig.mesh")
         if self._ooc is not None and snap.index is None:
             raise ValueError(
                 "OutOfCoreGraphStore needs an attached incremental index — "
@@ -388,7 +402,14 @@ class GraphQueryService:
     def _cache_epoch(self, snap: GraphSnapshot) -> _EpochEntry:
         entry = self._epochs.get(snap.epoch)
         if entry is None:
-            entry = _EpochEntry(snapshot=snap, host_graph=to_host(snap.graph))
+            sharded = None
+            if self.cfg.mesh is not None:
+                # partition this epoch's edge set once; every tick on the
+                # epoch reuses the buckets
+                sharded = prepare_sharded_edges(
+                    snap, self.cfg.mesh, self.cfg.shard_axis)[:2]
+            entry = _EpochEntry(snapshot=snap, host_graph=to_host(snap.graph),
+                                sharded=sharded)
             self._epochs[snap.epoch] = entry
         return entry
 
@@ -592,12 +613,22 @@ class GraphQueryService:
             )
             entry = self._epochs[epoch]
             t_round = time.perf_counter()
-            new_alive, cand, changed = batched_ilgf_round(
-                entry.snapshot.graph, qb, self._alive & mask,
-                n_labels=self.cfg.max_query_labels,
-                d_max=self.d_max, max_p=self.max_p,
-                variant=self.cfg.filter_variant,
-            )
+            if entry.sharded is not None:
+                se, plan = entry.sharded
+                new_alive, cand, changed = sharded_batched_ilgf_round(
+                    se, plan, qb, self._alive & mask, mesh=self.cfg.mesh,
+                    axis=self.cfg.shard_axis,
+                    n_labels=self.cfg.max_query_labels,
+                    d_max=self.d_max, max_p=self.max_p,
+                    variant=self.cfg.filter_variant,
+                )
+            else:
+                new_alive, cand, changed = batched_ilgf_round(
+                    entry.snapshot.graph, qb, self._alive & mask,
+                    n_labels=self.cfg.max_query_labels,
+                    d_max=self.d_max, max_p=self.max_p,
+                    variant=self.cfg.filter_variant,
+                )
             converged = ~changed.cpu().numpy()  # the group's one sync
             alive_merged = torch.where(mask, new_alive, alive_merged)
             self._m_rounds.inc()
@@ -845,6 +876,8 @@ class GraphQueryService:
                 max_embeddings=req.max_embeddings,
                 planner=self.planner,
                 enumerator=self.cfg.enumerator,
+                mesh=self.cfg.mesh,
+                shard_axis=self.cfg.shard_axis,
                 device=self.device,
             )
         if req.span is not None:

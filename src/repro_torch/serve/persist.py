@@ -24,24 +24,27 @@ the port.
 Every restore checks the leaves against the manifest and the parts'
 metas against each other (``leaf_keys``, the store kind, the index type,
 the index epoch against the store epoch, the out-of-core generation's
-existence) and raises ``CheckpointError`` on a disagreement.  The sharded
-store kind belongs to a later slice of the port and raises
-``NotImplementedError`` naming its item.
+existence, the shard plan of a sharded index against its store's) and
+raises ``CheckpointError`` on a disagreement.
 """
 
 from __future__ import annotations
 
 from repro_torch.checkpoint import CheckpointError, CheckpointManager
-from repro_torch.core.incremental import IncrementalIndex
+from repro_torch.core.incremental import (
+    IncrementalIndex,
+    ShardedIncrementalIndex,
+)
 from repro_torch.graphs.ooc import OutOfCoreGraphStore
-from repro_torch.graphs.store import GraphStore, later_slice
+from repro_torch.graphs.store import GraphStore, ShardedGraphStore
 
 SCHEMA_VERSION = 1
 
-# store kinds and index types a snapshot may name, and the later slices
-# that bring the ones the port lacks
-_LATER_STORES = {"sharded": "11 (multi-device)"}
-_LATER_INDEXES = {"ShardedIncrementalIndex": "11 (multi-device)"}
+# the store kinds and index types a snapshot may name
+_STORES = {"graph": GraphStore, "sharded": ShardedGraphStore,
+           "ooc": OutOfCoreGraphStore}
+_INDEXES = {"IncrementalIndex": IncrementalIndex,
+            "ShardedIncrementalIndex": ShardedIncrementalIndex}
 
 
 class ServiceCheckpointer:
@@ -108,29 +111,21 @@ class ServiceCheckpointer:
             raise CheckpointError(
                 f"service snapshot step {step} has no store meta")
         kind = store_meta["kind"]
-        if kind in _LATER_STORES:
-            raise later_slice(f"restoring a {kind!r} store snapshot",
-                              _LATER_STORES[kind])
-        if kind == "graph":
-            store = GraphStore.from_checkpoint_state(
-                _part(leaves, "store/"), store_meta, device=device)
-        elif kind == "ooc":
-            store = OutOfCoreGraphStore.from_checkpoint_state(
-                _part(leaves, "store/"), store_meta, storage_dir=storage_dir,
-                device=device)
-        else:
+        cls = _STORES.get(kind)
+        if cls is None:
             raise CheckpointError(
                 f"service snapshot has unknown store kind {kind!r}")
+        extra = {"storage_dir": storage_dir} if kind == "ooc" else {}
+        store = cls.from_checkpoint_state(_part(leaves, "store/"),
+                                          store_meta, device=device, **extra)
         idx_meta = meta.get("index")
         if idx_meta is not None:
-            itype = idx_meta.get("type")
-            if itype in _LATER_INDEXES:
-                raise later_slice(f"restoring a {itype}",
-                                  _LATER_INDEXES[itype])
-            if itype != "IncrementalIndex":
+            icls = _INDEXES.get(idx_meta.get("type"))
+            if icls is None:
                 raise CheckpointError(
-                    f"service snapshot has unknown index type {itype!r}")
-            idx = IncrementalIndex.from_checkpoint_state(
+                    f"service snapshot has unknown index type "
+                    f"{idx_meta.get('type')!r}")
+            idx = icls.from_checkpoint_state(
                 _part(leaves, "index/"), idx_meta, store=store)
             try:
                 store.attach_index(idx, rebuild=False)

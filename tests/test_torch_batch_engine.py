@@ -228,17 +228,31 @@ def test_compact_batch_gathers_and_inerts():
 
 
 def test_empty_batch_and_later_slices_raise():
+    """An empty batch; the multi-device cases (ROADMAP A11), which raised
+    until that slice, now equal the reference's unmeshed batch; the
+    argument checks."""
+    from repro_torch.core import device_mesh
     from repro_torch.graphs import GraphSnapshot, ShardedGraphStore
 
     g = random_labeled_graph(50, 120, 3, seed=0)
     assert BatchQueryEngine(port(g), device="cpu").query_batch([]) == []
-    with pytest.raises(NotImplementedError, match="item 11"):
-        BatchQueryEngine(ShardedGraphStore.from_graph(port(g), n_shards=2),
-                         device="cpu")
+    queries = [random_walk_query(g, 3, seed=s) for s in range(4)]
+    want = RefBatchEngine(g).query_batch(queries)
+    for eng in (
+        BatchQueryEngine(ShardedGraphStore.from_graph(port(g), n_shards=2,
+                                                      device="cpu"),
+                         device="cpu"),
+        BatchQueryEngine(port(g), mesh=device_mesh(2, devices="cpu"),
+                         device="cpu"),
+    ):
+        got = eng.query_batch([port(q) for q in queries])
+        for (emb, st), (w_emb, w_st) in zip(got, want):
+            np.testing.assert_array_equal(emb, np.asarray(w_emb))
+            assert st.ilgf_iterations == w_st.ilgf_iterations
     with pytest.raises(ValueError, match="incremental index"):
         BatchQueryEngine(GraphSnapshot(0, port(g), None, ooc=object()),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         BatchQueryEngine(port(g), mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="enumerator"):
         BatchQueryEngine(port(g), enumerator="gpu", device="cpu")

@@ -14,8 +14,8 @@
   the next ``save`` and through the service.
 * A snapshot directory the reference wrote restores in the port to an
   index equal to the port's scratch rebuild.
-* The sharded store kind raises ``NotImplementedError`` naming its
-  ROADMAP item; an in-memory snapshot relabelled out-of-core fails closed.
+* An in-memory snapshot relabelled sharded (no ``n_shards``) or
+  out-of-core (no overlay leaves) fails closed.
 """
 
 import json
@@ -535,17 +535,18 @@ class TestFailClosed:
 
 @pytest.mark.parametrize("kind,error,match", [
     ("ooc", CheckpointError, "missing leaf"),
-    ("sharded", NotImplementedError, "item 11"),
+    ("sharded", CheckpointError, "n_shards"),
 ], ids=["ooc", "sharded"])
 def test_later_slice_store_kinds_raise(tmp_path, kind, error, match):
-    """The sharded kind names its ROADMAP item; the out-of-core kind is
-    ported, and an in-memory snapshot relabelled ``ooc`` lacks its overlay
-    leaves, so it fails closed."""
+    """Both later-slice kinds are ported (the sharded one with ROADMAP
+    A11): an in-memory snapshot relabelled ``sharded`` lacks its shard
+    count, one relabelled ``ooc`` its overlay leaves, so each fails
+    closed."""
     d, step_dir = _committed_service_dir(tmp_path)
     _edit_manifest(step_dir, lambda m: m["store"].__setitem__("kind", kind))
     with pytest.raises(error, match=match):
         ServiceCheckpointer(str(d)).restore_latest(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(CheckpointError, match="missing leaf"):
         ShardedGraphStore.from_checkpoint_state({}, {})
 
 

@@ -138,15 +138,31 @@ def test_entry_points_default_to_cuda(monkeypatch):
     ("sharded_store", "11"),
 ])
 def test_later_slices_raise(case, slice_item):
+    """The cases of ROADMAP item ``slice_item`` (A11, multi-device) raised
+    until that slice was ported; a meshed engine, and an engine over a
+    sharded store, now answer as the reference's unmeshed engine does."""
+    from repro_torch.core import device_mesh
     from repro_torch.graphs import ShardedGraphStore
 
-    g = random_labeled_graph(50, 120, 3, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {slice_item}"):
-        if case == "mesh":
-            SubgraphQueryEngine(g, mesh=object(), device="cpu")
-        else:
-            SubgraphQueryEngine(ShardedGraphStore.from_graph(g, n_shards=2),
-                                device="cpu")
+    assert slice_item == "11"
+    g_ref = r_random_graph(50, 120, 3, seed=0)
+    g = graph_from_numpy(*(np.asarray(x) for x in g_ref), device="cpu")
+    if case == "mesh":
+        eng = SubgraphQueryEngine(g, mesh=device_mesh(2, devices="cpu"),
+                                  enumerator="device", device="cpu")
+    else:
+        eng = SubgraphQueryEngine(ShardedGraphStore.from_graph(
+            g, n_shards=2, device="cpu"), device="cpu")
+    ref = RefEngine(g_ref)
+    for seed in range(3):
+        q = r_walk(g_ref, 3, seed=seed)
+        want, w_stats = ref.query(q)
+        got, stats = eng.query(graph_from_numpy(
+            *(np.asarray(x) for x in q), device="cpu"))
+        np.testing.assert_array_equal(got, np.asarray(want))
+        assert stats.ilgf_iterations == w_stats.ilgf_iterations
+    with pytest.raises(TypeError, match="ShardMesh"):
+        SubgraphQueryEngine(g, mesh=object(), device="cpu")
 
 
 def test_store_input_raises():

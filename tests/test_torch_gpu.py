@@ -809,3 +809,126 @@ def test_ooc_store_on_card_equals_cpu(cuda, tmp_path):
     for name in ("embed_join_count", "embed_join_emit", "cni_encode",
                  "candidate_filter", "cni_update"):
         assert after[name] > before[name], name
+
+
+# ---------------------------------------------------------------------------
+# the multi-device path: logical shards on one card
+# ---------------------------------------------------------------------------
+
+
+def _mesh(device, n=4):
+    from repro_torch.core import device_mesh
+
+    return device_mesh(n, devices=[device] * n)
+
+
+def _sharded_store(device, g, n_shards=4):
+    from repro_torch.core import ShardedIncrementalIndex
+    from repro_torch.graphs import ShardedGraphStore
+
+    store = ShardedGraphStore.from_graph(g, n_shards=n_shards, degree_cap=64,
+                                         device=device)
+    store.attach_index(ShardedIncrementalIndex())
+    return store
+
+
+def test_meshed_query_on_card_equals_cpu(cuda):
+    g = random_labeled_graph(1500, 6000, 6, seed=5, device="cpu")
+    queries = [random_walk_query(g, 5, sparse=bool(i % 2), seed=70 + i,
+                                 device="cpu") for i in range(3)]
+    eng = SubgraphQueryEngine(g, mesh=_mesh("cuda:0"), enumerator="device",
+                              device="cuda")
+    cpu = SubgraphQueryEngine(g, mesh=_mesh("cpu"), enumerator="device",
+                              device="cpu")
+    for q in queries:
+        got, st = eng.query(q)
+        want, w_st = cpu.query(q)
+        np.testing.assert_array_equal(got, want)
+        assert st.ilgf_iterations == w_st.ilgf_iterations
+        assert st.extras["enum"]["enum_shards"] == 4
+
+
+def test_meshed_batch_on_card_equals_cpu(cuda):
+    g = random_labeled_graph(1500, 6000, 6, seed=6, device="cpu")
+    queries = [random_walk_query(g, 4 + i % 3, sparse=bool(i % 2),
+                                 seed=80 + i, device="cpu") for i in range(6)]
+    got = BatchQueryEngine(g, mesh=_mesh("cuda:0"), enumerator="device",
+                           device="cuda").query_batch(queries)
+    want = BatchQueryEngine(g, enumerator="device",
+                            device="cpu").query_batch(queries)
+    for (e1, s1), (e2, s2) in zip(got, want):
+        np.testing.assert_array_equal(e1, e2)
+        assert s1.ilgf_iterations == s2.ilgf_iterations
+
+
+def test_meshed_service_on_card_equals_cpu(cuda):
+    g = random_labeled_graph(600, 2000, 5, n_edge_labels=2, seed=9,
+                             device="cpu")
+    queries = [random_walk_query(g, 4, sparse=True, seed=90 + i,
+                                 device="cpu") for i in range(6)]
+
+    def run(device):
+        store = _sharded_store(device, g)
+        svc = GraphQueryService(store, GraphServiceConfig(
+            max_slots=4, max_query_vertices=8, max_query_labels=8,
+            enumerator="device", mesh=_mesh(device if device == "cpu"
+                                            else "cuda:0")))
+        for q in queries:
+            svc.submit(q)
+        out = {rid: emb for rid, emb, _ in svc.tick()}
+        svc.add_edges([[0, 599], [1, 300], [2, 450]])
+        svc.remove_edges([[0, 599]])
+        out.update((rid, emb) for rid, emb, _ in svc.run_to_completion())
+        svc.shutdown()
+        return store, out
+
+    before = _launches()
+    store, got = run("cuda")
+    after = _launches()
+    cpu_store, want = run("cpu")
+    assert sorted(got) == sorted(want)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    for name in ("counts", "deg", "cni"):
+        assert torch.equal(getattr(store.index, name).cpu(),
+                           getattr(cpu_store.index, name)), name
+    for name in ("embed_join_count", "embed_join_emit", "cni_encode",
+                 "candidate_filter", "cni_update"):
+        assert after[name] > before[name], name
+
+
+def test_device_mesh_needs_devices_beyond_the_visible_cards(cuda):
+    from repro_torch.core import device_mesh
+
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="devices are visible"):
+        device_mesh(n + 1)
+    assert device_mesh(n + 1, devices="cuda:0").n_shards == n + 1
+    assert device_mesh().n_shards == n
+
+
+def test_sharded_wrappers_count_one_launch_per_shard(cuda):
+    from repro_torch.core import distributed_ilgf, ilgf
+    from repro_torch.core.distributed import prepare_sharded_edges
+
+    g = random_labeled_graph(2000, 8000, 6, seed=3, device="cuda")
+    q = random_walk_query(g, 5, sparse=False, seed=4, device="cuda")
+    for n in (1, 2, 4):
+        mesh = _mesh("cuda:0", n)
+        prepared = prepare_sharded_edges(g, mesh)
+        before = _launches()
+        res = distributed_ilgf(g, q, mesh, prepared=prepared)
+        after = _launches()
+        want = n * (res.iterations + 1)  # each round and the final match
+        # cni_encode once more: the query's digest
+        assert after["cni_encode"] - before["cni_encode"] == want + 1
+        assert after["candidate_filter"] - before["candidate_filter"] == want
+        ref_res = ilgf(g, q)
+        assert torch.equal(res.alive, ref_res.alive)
+        assert torch.equal(res.candidates, ref_res.candidates)
+    # the sharded index: one cni_update launch per touched shard
+    store = _sharded_store("cuda", g, 4)
+    before = _launches()
+    store.add_edges([[0, 10], [600, 1999]])  # shards 0, and 1 and 3
+    after = _launches()
+    assert after["cni_update"] - before["cni_update"] == 3

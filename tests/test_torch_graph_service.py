@@ -597,9 +597,23 @@ class TestReplicas:
 # ---------------------------------------------------------------------------
 
 
-def test_device_default_and_later_slices(monkeypatch, graph):
+def test_device_default_and_later_slices(monkeypatch, graph, queries):
+    """The mesh (ROADMAP A11) raised until that slice; a meshed service
+    now answers as the reference's unmeshed one.  The device rules."""
+    from repro_torch.core import device_mesh
+
     g = port(graph)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    tw = Twin(RefService(graph, RefConfig(max_slots=2, max_query_vertices=8,
+                                          max_query_labels=8,
+                                          enumerator="device")),
+              GraphQueryService(g, GraphServiceConfig(
+                  max_slots=2, max_query_vertices=8, max_query_labels=8,
+                  enumerator="device", mesh=device_mesh(2, devices="cpu")),
+                  device="cpu"))
+    for q in queries[:4]:
+        tw.submit(q)
+    tw.run()
+    with pytest.raises(TypeError, match="ShardMesh"):
         GraphQueryService(g, GraphServiceConfig(mesh=object()), device="cpu")
     with pytest.raises(ValueError, match="incremental index"):
         GraphQueryService(GraphSnapshot(0, g, None, ooc=object()),

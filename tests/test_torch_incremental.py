@@ -357,8 +357,21 @@ def test_batch_engine_on_store_equals_reference():
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ShardedIncrementalIndex(n_shards=2)
+    """The sharded index (ROADMAP A11) raised until that slice; over a
+    plain store it now partitions by its own ``n_shards`` and equals the
+    unsharded index, as the reference's does."""
+    g = random_labeled_graph(30, 70, 3, seed=2)
+    ref, flat = twin_stores(g)
+    sharded = GraphStore.from_graph(port(g), device="cpu")
+    sharded.attach_index(ShardedIncrementalIndex(n_shards=2))
+    edges = [[0, 29], [1, 28], [2, 3]]
+    for store in (ref, flat, sharded):
+        store.add_edges(edges)
+    assert sharded.index._plan.n_shards == 2
+    for name in ("counts", "deg", "cni", "cni_log"):
+        assert torch.equal(getattr(sharded.index, name),
+                           getattr(flat.index, name)), name
+    assert_equals_reference(flat.index, ref.index)
     idx = IncrementalIndex()
     store = GraphStore(3, np.zeros(3, np.int32), device="cpu")
     store.attach_index(idx)

@@ -51,7 +51,12 @@ from repro.serve import GraphServiceConfig as RefConfig
 from repro.serve import ServiceCheckpointer as RefCheckpointer
 from repro_torch import obsv
 from repro_torch.checkpoint import CheckpointError
-from repro_torch.core import BatchQueryEngine, IncrementalIndex, SubgraphQueryEngine
+from repro_torch.core import (
+    BatchQueryEngine,
+    IncrementalIndex,
+    SubgraphQueryEngine,
+    device_mesh,
+)
 from repro_torch.core.stats import GraphStats
 from repro_torch.graphs import (
     ChunkIOError,
@@ -620,8 +625,16 @@ def test_engines_need_the_index(store_and_query):
     bare = OutOfCoreGraphStore.open(store._root, index=None, device="cpu")
     with pytest.raises(ValueError, match="incremental index"):
         SubgraphQueryEngine(bare, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        BatchQueryEngine(store, mesh=object(), device="cpu")
+    # an out-of-core snapshot runs single-host: mesh= raises the
+    # reference's ValueError in both engines and the service
+    m = device_mesh(2, devices="cpu")
+    with pytest.raises(ValueError, match="out-of-core stores run "
+                       "single-host; build the batch engine without mesh="):
+        BatchQueryEngine(store, mesh=m, device="cpu")
+    with pytest.raises(ValueError, match="build the engine without mesh="):
+        SubgraphQueryEngine(store, mesh=m, device="cpu")
+    with pytest.raises(ValueError, match="drop GraphServiceConfig.mesh"):
+        GraphQueryService(store, GraphServiceConfig(mesh=m))
 
 
 # ---------------------------------------------------------------------------
