@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 1,2,8,12   # stream filter, graph index,
                                               # out-of-core store
     python3 chip_smoke.py --phases 1,2,13     # the multi-device path
+    python3 chip_smoke.py --phases 1,2,14     # training (dense, RWKV-6)
 
 Phases:
 
@@ -115,7 +116,9 @@ Phases:
               the grid kernel on ``distributed_join_search``, cni_encode
               on the sharded seed, cni_update on its ``apply`` and the
               meshed service's mutations, and no cni_encode in its
-              restore.
+              restore; on phase 14 flash_attention on granite-3-2b's
+              ``Trainer.run`` at full depth and at 2 layers (the straight,
+              the killed and the resumed job), and wkv6 on rwkv6-7b's.
 9. store    — ``GraphStore`` + ``IncrementalIndex`` on the card: the
               join-heavy graph with ``random_update_batches(.., 8, 4096,
               delete_frac=0.35, seed=1)``, and the scale graph seeded as a
@@ -182,8 +185,8 @@ Phases:
               replicas, 16 queries, one batch through the writer, each
               result equal to one service's).  Scale: ``GraphServiceConfig()``
               with ``enumerator="device"``, ``plan_queries=True`` over the
-              scale store; 4 dense 10-vertex queries, a tick, one 65,536-
-              record batch at 35 % deletes through the service, 4 more, and
+              scale store; 2 dense 10-vertex queries, a tick, one 65,536-
+              record batch at 35 % deletes through the service, 2 more, and
               ticks to the end; each result equal to the engine on its pinned
               snapshot; per tick the wall time split into admission (host
               ords and query digest, ``store_prefilter``, epoch pin and host
@@ -206,8 +209,9 @@ Phases:
               DFS brute force over all 1,000 graphs.  (c)
               ``OutOfCoreGraphStore.from_graph(g, chunk_edges=65536,
               degree_cap=64)`` (sort and write, then the streamed index
-              rebuild, timed apart); 4 dense 10-vertex queries through the
-              device-join engine and as one batch, each equal to the
+              rebuild, timed apart); 2 dense 10-vertex queries (phase 7's
+              first two) through the device-join engine and as one batch,
+              each equal to the
               in-memory engine and the DFS oracle, with each query's chunk
               IO, fetch, filter and search seconds; one 65,536-record
               batch at 35 % deletes (chunk probes and cni_update timed
@@ -235,7 +239,8 @@ Phases:
               the emit rows per level and shard, and
               ``distributed_join_search`` (cap 4,096) equal to the DFS
               oracle as a set; (d) ``BatchQueryEngine(mesh=<4 shards>)`` on
-              phase 7's HUMAN batch of 32 and scale batch of 8, each query
+              phase 7's HUMAN batch of 32 and the first 4 of its scale
+              batch, each query
               equal to the unmeshed batch's; (e) the scale graph as a
               4-shard ``ShardedGraphStore`` (degree cap 64) with a
               ``ShardedIncrementalIndex``: seed, two 65,536-record batches
@@ -248,8 +253,32 @@ Phases:
               batches, no deadlines): equal results, rejections and
               counters, then a warm restore of the sharded snapshot (every
               shard bit for bit, no cni_encode); and the scale sharded
-              store behind ``GraphServiceConfig(mesh=<4 shards>)``: 8 dense
-              queries, each equal to the engine on the snapshot.
+              store behind ``GraphServiceConfig(mesh=<4 shards>)``: the same
+              4 dense queries, each equal to the engine on the snapshot.
+
+14. train   — ``Trainer`` on the card, float32, random params from a
+              seed and ``SyntheticLMDataset``'s batches, every earlier
+              phase's device memory freed first: (a) granite-3-2b at full
+              width and depth (40 layers, remat "full", B 4 x S 512), 8
+              steps without a checkpoint: every loss finite, the median
+              step over steps 3-8, tokens/s, peak memory, and exactly 80
+              flash_attention launches a step (40 forward, 40 in the
+              recompute); (b) granite-3-2b at full width with 2 layers, 30
+              steps at lr 1e-3 (warmup 3, commits at 15 and 30, keep 1):
+              the last logged loss below the first; the same job killed
+              after its step-15 commit and finished by a new ``Trainer``
+              ends on the straight run's params within 2e-4; (c) rwkv6-7b
+              at full width with 2 layers, B 4 x T 256, 5 steps: step ms,
+              tokens/s, peak memory, 4 wkv6 launches a step; (d) loss and
+              grads of both at 2 full-width layers on the kernels against
+              ``attn_impl="ref"`` on the same params and batch (granite:
+              loss within 1e-5 relative, each grad leaf within 1e-3 of its
+              largest plain value; rwkv6: 1e-6 and 1e-5); (e) the float32
+              prefill at (4, 32/8, 512, 64) and wkv6 at (4, 64, 256, 64)
+              against their plain versions, timed as in phase 3 (SDPA with
+              ``is_causal`` and ``enable_gqa`` as the prefill's library
+              time), and each one's plain backward (CUDA events) as a share
+              of (a)'s or (c)'s step.
 
 Any failure propagates: the script exits non-zero and prints no result.
 The last line of a passing run is
@@ -1549,7 +1578,10 @@ SERVICE_WAVES = 4
 SERVICE_WAVE = 16
 SERVICE_RECORDS = 512
 # the scale service: dense 10-vertex queries before and after its batch
-SCALE_SERVICE_QUERIES = 4
+# 2 queries before the batch and 2 after (4 and 4 until phase 14 joined
+# the run): each is drawn on the pinned snapshot's graph, a host sort of its
+# 138M directed edges
+SCALE_SERVICE_QUERIES = 2
 INDEX_STATE = ("counts", "deg", "cni", "cni_log")
 
 
@@ -1858,8 +1890,8 @@ def timed_tick(main, svc, timer, profiled: bool):
 
 
 def service_scale(main, core, graphs, serve, gs, scale: float):
-    """The scale service: 4 dense queries, a tick, one 65,536-record batch
-    through the service, 4 more queries, ticks to the end; each tick's
+    """The scale service: 2 dense queries, a tick, one 65,536-record batch
+    through the service, 2 more queries, ticks to the end; each tick's
     parts, queries/s, peak memory, one tick under the profiler."""
     store, stream, _ = scale_store(main, core, graphs, scale)
     cap = service_cap(store)
@@ -1874,6 +1906,8 @@ def service_scale(main, core, graphs, serve, gs, scale: float):
         f"enumerator='device', plan_queries=True: {SCALE_SERVICE_QUERIES} "
         f"dense 10-vertex queries, one tick, a {STREAM_RECORDS:,}-record "
         f"batch at {DELETE_FRAC:.0%} deletes, {SCALE_SERVICE_QUERIES} more")
+    log(f"  cut: {SCALE_SERVICE_QUERIES} queries on each side of the batch (4 "
+        f"before phase 14 joined the run)")
     pin0 = store.pin()
     pinned = {pin0.epoch: pin0}
     qs = [graphs.random_walk_query(pin0.graph, 10, sparse=False, seed=s,
@@ -1978,7 +2012,9 @@ def phase_service(main, core, graphs, scale: float, join=None):
 STREAM_CHUNK = 65_536
 JOIN_STREAM_CHUNK = 4_096
 OOC_CHUNK = 65_536
-OOC_QUERIES = 4
+# 2 dense queries (4 until phase 14 joined the run), the scale batch's
+# first ones: the same seeds on the same graph, so no draw of their own
+OOC_QUERIES = 2
 DB_GRAPHS = 1000
 DB_QUERIES = 8
 OOC_SERVICE_WAVES = 2  # of SERVICE_WAVE requests: 32 in all
@@ -2372,9 +2408,10 @@ def phase_stream_ooc(main, core, graphs, scale: float):
         if free < need:
             raise AssertionError(f"phase 12 needs {need:,} bytes of disk, the "
                                  f"temporary directory has {free:,}")
-        queries = [graphs.random_walk_query(g, 10, sparse=False, seed=s,
-                                            device="cuda")
-                   for s in range(3, 3 + OOC_QUERIES)]
+        queries = list(scale_queries(graphs, scale)[:OOC_QUERIES])
+        log(f"  cut: (c) runs {OOC_QUERIES} queries and a batch of "
+            f"{OOC_QUERIES} (4 before phase 14 joined the run), the scale "
+            f"batch's first ones (the same seeds) instead of drawing its own")
         parts = {}
         t0 = time.perf_counter()
         stream_scale(main, core, graphs, g, queries[0], tmp)
@@ -2856,6 +2893,9 @@ def phase_serve(main, lm, arch: str):
 # ---------------------------------------------------------------------------
 
 MESH_SHARDS = (1, 2, 4)
+# (d)'s scale batch and (f)'s scale service take the scale batch's first 4
+# queries (all 8 until phase 14 joined the run)
+MESH_SCALE_QUERIES = 4
 MESH_STORE_BATCHES = 2
 # the meshed join-heavy service's traffic: waves of requests, a mutation
 # batch after each wave's first tick (phase 11's shapes, no deadlines, so
@@ -2999,7 +3039,10 @@ def mesh_batch(main, core, graphs, scale: float):
     hq = [graphs.random_walk_query(human, int(rng.integers(10, 15)),
                                    sparse=True, seed=100 + i, device="cuda")
           for i in range(32)]
-    g, sq = scale_graph(graphs, scale), list(scale_queries(graphs, scale))
+    g = scale_graph(graphs, scale)
+    sq = list(scale_queries(graphs, scale)[:MESH_SCALE_QUERIES])
+    log(f"  cut: (d) and (f) take {MESH_SCALE_QUERIES} of the scale batch's "
+        f"{SCALE_BATCH} queries (all of them before phase 14 joined the run)")
     for data, queries, tag in ((human, hq, "HUMAN"), (g, sq, "scale")):
         want, plain_s = synced_s(lambda: core.BatchQueryEngine(
             data, enumerator="device").query_batch(queries))
@@ -3186,7 +3229,7 @@ def mesh_service_scale(main, core, graphs, serve, store, queries):
     snap, snap_s = synced_s(store.snapshot)
     _, prep_s = synced_s(lambda: dist.prepare_sharded_edges(
         snap, card_mesh(core, 4)))
-    qs = list(queries)
+    qs = list(queries[:MESH_SCALE_QUERIES])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rids = [main.run("meshed_service_scale", lambda q=q: svc.submit(q))
@@ -3248,9 +3291,339 @@ def phase_mesh(main, core, graphs, search, scale: float):
     log(f"  phase 13 parts (s): { {k: round(v, 1) for k, v in parts.items()} }")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training, the kernels under autograd
+# ---------------------------------------------------------------------------
+
+# granite-3-2b's (a), (b) and (d) batches, and rwkv6-7b's (c) and (d)
+TRAIN_SHAPE = {"granite-3-2b": (4, 512), "rwkv6-7b": (4, 256)}
+TRAIN_FULL_STEPS = 8      # (a): granite at full depth
+TRAIN_RESUME_STEPS = 30   # (b): 2 layers, a commit at step 15, keep 1
+TRAIN_RWKV_STEPS = 5      # (c): rwkv6-7b, 2 layers
+
+
+class TrainCrash(RuntimeError):
+    """Raised from ``on_metrics`` to kill a training job mid-flight."""
+
+
+def train_modules():
+    """The training modules phase 14 drives, in one namespace (so that a
+    CPU rehearsal can hand them reduced configs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import convert, model
+    from repro_torch.train import Trainer, TrainerConfig
+    return types.SimpleNamespace(get_config=get_config, M=model,
+                                 convert=convert, Trainer=Trainer,
+                                 TrainerConfig=TrainerConfig,
+                                 SyntheticLMDataset=SyntheticLMDataset)
+
+
+def state_gb(params) -> float:
+    """Params, grads, AdamW m and v in float32: 16 bytes a parameter."""
+    return 16 * sum(p.numel() for p in params.parameters()) / 1e9
+
+
+def train_job(main, tm, cfg, path, shape, tcfg, *, seed=0, on_metrics=None):
+    """One ``Trainer.run`` at ``shape`` (B, S) on the card as an entry-point
+    call of phase 14's ``path``; returns (params, opt_state, history)."""
+    b, s = shape
+    trainer = tm.Trainer(cfg, tm.TrainerConfig(**tcfg), global_batch=b,
+                         seq_len=s, seed=seed, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(seed)
+    try:
+        return main.run(path, lambda: trainer.run(
+            generator=gen, on_metrics=on_metrics), phase=14)
+    finally:
+        if trainer.ckpt is not None:
+            trainer.ckpt.wait()
+
+
+def report_steps(name, shape, hist, launches, kernel, first_timed, held):
+    """Median step over the history from ``first_timed`` on, tokens/s, peak
+    memory above ``held`` and the kernel's launches a step."""
+    b, s = shape
+    times = [m["step_time_s"] for step, m in hist if step >= first_timed]
+    losses = [m["loss"] for _, m in hist]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: a non-finite loss in {losses}")
+    med = float(np.median(times))
+    per_step = launches[kernel] / len(hist)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    log(f"  {name}: steps {[st for st, _ in hist]}, losses "
+        f"{[round(x, 4) for x in losses]}; median step {med * 1e3:.1f} ms over "
+        f"steps {first_timed}-{hist[-1][0]} (min {min(times) * 1e3:.1f}, max "
+        f"{max(times) * 1e3:.1f}; step 1 {hist[0][1]['step_time_s'] * 1e3:.1f} "
+        f"ms), {b * s / med:.1f} tokens/s; {kernel} {per_step:g} launches a "
+        f"step ({launches}); peak device memory {peak:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held")
+    return med, per_step
+
+
+def train_full(main, tm, held):
+    """(a): granite-3-2b at full width and depth, 8 steps, no checkpoint."""
+    cfg = tm.get_config("granite-3-2b")
+    shape = TRAIN_SHAPE["granite-3-2b"]
+    log(f"[14 train] (a) {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"remat {cfg.remat!r}, B x S {shape}, float32")
+    torch.cuda.reset_peak_memory_stats()
+    params, _, hist = train_job(
+        main, tm, cfg, "granite-3-2b", shape,
+        dict(steps=TRAIN_FULL_STEPS, lr=3e-4, warmup=2, log_every=1))
+    log(f"  {sum(p.numel() for p in params.parameters()):,} params, "
+        f"{state_gb(params):.2f} GB of params, grads, m and v")
+    med, per_step = report_steps("(a)", shape, hist,
+                                 main.counts[(14, "granite-3-2b")],
+                                 "flash_attention", 3, held)
+    if per_step != 2 * cfg.n_layers:
+        raise AssertionError(f"(a): {per_step} flash_attention launches a "
+                             f"step, expected {2 * cfg.n_layers} (forward "
+                             f"and remat recompute)")
+    del params
+    return med, cfg.n_layers
+
+
+def train_resume(main, tm, convert):
+    """(b): granite-3-2b at full width with 2 layers: the loss falls over
+    30 steps at lr 1e-3, and a job killed after its step-15 commit and
+    finished by a new Trainer ends on the straight run's params."""
+    import shutil
+    import tempfile
+
+    cfg = dataclasses.replace(tm.get_config("granite-3-2b"), n_layers=2)
+    shape = TRAIN_SHAPE["granite-3-2b"]
+    tc = dict(steps=TRAIN_RESUME_STEPS, lr=1e-3, warmup=3, log_every=5,
+              checkpoint_every=15, keep_checkpoints=1)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        t0 = time.perf_counter()
+        straight, _, hist = train_job(
+            main, tm, cfg, "granite-3-2b_x2", shape,
+            dict(tc, checkpoint_dir=f"{tmp}/a"), seed=1)
+        t_straight = time.perf_counter() - t0
+        leaf_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(f"{tmp}/a") for f in fs)
+        log(f"[14 train] (b) {cfg.name} at 2 layers, B x S {shape}: {sum(p.numel() for p in straight.parameters()):,}"
+            f" params ({state_gb(straight):.2f} GB of state); "
+            f"{TRAIN_RESUME_STEPS} steps in {t_straight:.1f} s with 2 commits; "
+            f"a checkpoint {leaf_bytes / 1e9:.3f} GB on disk "
+            f"({shutil.disk_usage(tmp).free / 1e9:.1f} GB free)")
+        losses = [(st, round(m["loss"], 4)) for st, m in hist]
+        log(f"  (b) logged losses {losses}")
+        if not hist[-1][1]["loss"] < hist[0][1]["loss"]:
+            raise AssertionError(f"(b): the loss did not fall: {losses}")
+
+        def crash(step, _):
+            if step > 15:
+                raise TrainCrash(step)
+
+        t0 = time.perf_counter()
+        try:
+            train_job(main, tm, cfg, "granite-3-2b_x2", shape,
+                      dict(tc, checkpoint_dir=f"{tmp}/b"), seed=1,
+                      on_metrics=crash)
+            raise AssertionError("(b): the crash run did not crash")
+        except TrainCrash as err:
+            log(f"  (b) killed after step {err.args[0]}'s metrics; committed: "
+                f"{sorted(os.listdir(f'{tmp}/b'))}")
+        resumed, state, hist_c = train_job(
+            main, tm, cfg, "granite-3-2b_x2", shape,
+            dict(tc, checkpoint_dir=f"{tmp}/b"), seed=1)
+        t_crash = time.perf_counter() - t0
+    want = convert.params_to_numpy(cfg, straight)
+    got = convert.params_to_numpy(cfg, resumed)
+    worst = 0.0
+    for (path, a), b in zip(flat_tree(got), (x for _, x in flat_tree(want))):
+        err = float(np.abs(a - b).max())
+        worst = max(worst, err)
+        if not np.allclose(a, b, rtol=2e-4, atol=2e-4):
+            raise AssertionError(f"(b): resumed params differ at {path} by "
+                                 f"{err} (2e-4)")
+    log(f"  (b) crash + resume ({t_crash:.1f} s; new Trainer's steps "
+        f"{[st for st, _ in hist_c]}, opt step {int(state.step)}): final "
+        f"params max abs diff {worst:.3g} from the straight run (2e-4)")
+    del straight, resumed, state
+    torch.cuda.empty_cache()
+
+
+def flat_tree(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from flat_tree(tree[k], f"{prefix}{k}.")
+        else:
+            yield prefix + k, tree[k]
+
+
+def train_rwkv(main, tm, held):
+    """(c): rwkv6-7b at full width with 2 layers, 5 steps."""
+    cfg = dataclasses.replace(tm.get_config("rwkv6-7b"), n_layers=2)
+    b, t = TRAIN_SHAPE["rwkv6-7b"]
+    log(f"[14 train] (c) {cfg.name} at 2 layers: d {cfg.d_model}, remat {cfg.remat!r}, "
+        f"B x T {(b, t)}; the plain WKV backward holds T states of "
+        f"{(b, cfg.d_model // 64, 64, 64)} float32, "
+        f"{t * b * cfg.d_model * 64 * 4 / 1e9:.2f} GB a chain")
+    torch.cuda.reset_peak_memory_stats()
+    params, _, hist = train_job(main, tm, cfg, "rwkv6-7b", (b, t),
+                                dict(steps=TRAIN_RWKV_STEPS, lr=3e-4, warmup=1,
+                                     log_every=1))
+    log(f"  {sum(p.numel() for p in params.parameters()):,} params, "
+        f"{state_gb(params):.2f} GB of params, grads, m and v")
+    med, per_step = report_steps("(c)", (b, t), hist,
+                                 main.counts[(14, "rwkv6-7b")], "wkv6", 2, held)
+    if per_step != 2 * cfg.n_layers:
+        raise AssertionError(f"(c): {per_step} wkv6 launches a step, expected "
+                             f"{2 * cfg.n_layers}")
+    del params
+    torch.cuda.empty_cache()
+    return med, cfg.n_layers
+
+
+def loss_grads(tm, cfg, params, batch):
+    named = dict(params.named_parameters())
+    loss, _ = tm.M.loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True,
+                                materialize_grads=True)
+    return float(loss.detach()), dict(zip(named, grads))
+
+
+def train_grads(tm, arch: str, loss_rtol: float, grad_tol: float):
+    """(d): loss and grads of 2 full-width layers on the kernels against the
+    same on the plain versions (``attn_impl="ref"``), same params and
+    batch; each grad leaf within ``grad_tol`` x its largest plain value."""
+    cfg = dataclasses.replace(tm.get_config(arch), n_layers=2)
+    b, s = TRAIN_SHAPE[arch]
+    params = tm.M.init_params(cfg, torch.Generator("cuda").manual_seed(4),
+                              "cuda")
+    params.requires_grad_(True)
+    batch = tm.SyntheticLMDataset(cfg.vocab, s, b, seed=4).batch_at(0)
+    loss_k, grads_k = loss_grads(tm, cfg, params, batch)
+    loss_p, grads_p = loss_grads(tm, dataclasses.replace(cfg, attn_impl="ref"),
+                                 params, batch)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    errs = {name: float((g - grads_p[name]).abs().max())
+            / max(float(grads_p[name].abs().max()), 1e-30)
+            for name, g in grads_k.items()}
+    worst_name = max(errs, key=errs.get)
+    worst = errs[worst_name]
+    log(f"  (d) {arch} x2 layers: loss kernels {loss_k:.7f}, plain "
+        f"{loss_p:.7f} (rel diff {rel:.3g}, limit {loss_rtol:g}); largest grad "
+        f"diff {worst:.3g} of the leaf's max at {worst_name} (limit "
+        f"{grad_tol:g})")
+    if not rel <= loss_rtol or not worst <= grad_tol:
+        raise AssertionError(f"(d) {arch}: kernel path differs from the plain "
+                             f"path (loss {rel}, grads {worst})")
+    del params, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def backward_ms(fn, inputs, cotangents, reps: int = 5) -> float:
+    """Device time of one backward through ``fn`` (its Function's plain
+    recompute and VJP), CUDA events around ``reps`` backwards of one
+    graph."""
+    leaves = [x.detach().requires_grad_(True) for x in inputs]
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    torch.autograd.grad(out, leaves, cotangents, retain_graph=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        torch.autograd.grad(out, leaves, cotangents, retain_graph=True)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def train_kernel_times(fa_ops, fa_ref, wkv_ops, wkv_ref, steps):
+    """(e): the f32 prefill and wkv6 at the training shapes against their
+    plain versions, their times and bounds, and the share of a step their
+    plain backward takes (one backward a layer: layers x backward ms / step
+    ms, with ``steps[part] = (step ms, layers)`` of (a) and (c))."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    gen = torch.Generator("cuda").manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    b, s = TRAIN_SHAPE["granite-3-2b"]
+    q, k, v = randn(b, 32, s, 64), randn(b, 8, s, 64), randn(b, 8, s, 64)
+    err_fa = check_flash(fa_ops, fa_ref, "train_prefill", q, k, v, {})
+    tim = {"flash_attention_train": time_kernel(
+        "flash_attention_train", lambda: fa_ops.flash_attention(q, k, v),
+        lambda: fa_ref.mha_plain(q, k, v), flash_bound(q, k, {}),
+        f"training prefill B={b} Hq=32 Hkv=8 S={s} causal float32",
+        lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))}
+    bwd = backward_ms(fa_ops.flash_attention, (q, k, v), (randn(b, 32, s, 64),))
+    step_ms, layers = steps["a"]
+    share = layers * bwd / step_ms
+    log(f"  (e) flash_attention plain backward {bwd:.4f} ms a layer; {layers} "
+        f"a step: {share * 100:.2f} % of (a)'s median step {step_ms:.1f} ms")
+    tim["flash_attention_train"].update(backward_ms=bwd, step_share=share)
+
+    b, t = TRAIN_SHAPE["rwkv6-7b"]
+    r, kk, vv = randn(b, 64, t, 64), randn(b, 64, t, 64), randn(b, 64, t, 64)
+    w = torch.exp(-torch.exp(randn(b, 64, t, 64) * 0.5 - 4.0))
+    u, s0 = randn(64, 64), torch.zeros((b, 64, 64, 64), device="cuda")
+    err_wkv, _ = check_wkv(wkv_ops, wkv_ref, "train_chunk", r, kk, vv, w, u, s0)
+    tim["wkv6_train"] = time_kernel(
+        "wkv6_train", lambda: wkv_ops.wkv6(r, kk, vv, w, u, s0),
+        lambda: wkv_ref.wkv6_plain(r, kk, vv, w, u, s0), wkv_bound(r, vv, u),
+        f"training chunk B*H={b * 64} T={t} 64x64")
+    bwd = backward_ms(wkv_ops.wkv6, (r, kk, vv, w, u, s0),
+                      (randn(b, 64, t, 64), randn(b, 64, 64, 64)), reps=2)
+    step_ms, layers = steps["c"]
+    share = layers * bwd / step_ms
+    log(f"  (e) wkv6 plain backward {bwd:.4f} ms a layer; {layers} a step: "
+        f"{share * 100:.2f} % of (c)'s median step {step_ms:.1f} ms")
+    tim["wkv6_train"].update(backward_ms=bwd, step_share=share)
+    return {"flash_attention": err_fa, "wkv6": err_wkv}, tim
+
+
+def phase_train(main, fa_ops, fa_ref, wkv_ops, wkv_ref, stores):
+    """Phase 14: training on the card (a)-(e)."""
+    import gc
+
+    tm = train_modules()
+    # free what earlier phases hold: (a) needs about 45 GB
+    stores.clear()
+    scale_store.cache_clear()
+    scale_graph.cache_clear()
+    scale_queries.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"[14 train] device memory held at the start: {held / 2**30:.3f} GiB")
+    parts, steps = {}, {}
+    t0 = time.perf_counter()
+    med, layers = train_full(main, tm, held)
+    steps["a"] = (med * 1e3, layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_resume(main, tm, tm.convert)
+    parts["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    med, layers = train_rwkv(main, tm, held)
+    steps["c"] = (med * 1e3, layers)
+    parts["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("[14 train] (d) gradients, kernels against plain versions")
+    train_grads(tm, "granite-3-2b", 1e-5, 1e-3)
+    train_grads(tm, "rwkv6-7b", 1e-6, 1e-5)
+    parts["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("[14 train] (e) kernel times at the training shapes")
+    err, tim = train_kernel_times(fa_ops, fa_ref, wkv_ops, wkv_ref, steps)
+    parts["e"] = time.perf_counter() - t0
+    log(f"  phase 14 parts (s): { {k: round(v, 1) for k, v in parts.items()} }")
+    return err, tim
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                         help="comma-separated phase numbers to run")
     parser.add_argument("--scale", type=float, default=1.0,
                         help="common factor on the scale graph's (and the "
@@ -3322,6 +3695,15 @@ def main(argv=None) -> int:
                 fn()
             log(f"  phase {num}: {time.perf_counter() - t0:.1f} s, launches "
                 f"{ {path: c for (n, path), c in main.counts.items() if n == num} }")
+    if 14 in phases:
+        main.phase = 14
+        t0 = time.perf_counter()
+        err, tim = phase_train(main, fa_ops, fa_ref, wkv_ops, wkv_ref, stores)
+        for name, e in err.items():
+            max_err[name] = max(max_err.get(name, 0.0), e)
+        timings.update(tim)
+        log(f"  phase 14: {time.perf_counter() - t0:.1f} s, launches "
+            f"{ {path: c for (n, path), c in main.counts.items() if n == 14} }")
     launches = {k: sum(c[k] for c in main.counts.values()) for k in main.read()}
     if 8 in phases:
         log(f"[8 counts] main-path launches per (phase, path): {main.counts}; "
@@ -3361,7 +3743,10 @@ def main(argv=None) -> int:
                     (13, "sharded_store"): ("cni_update",),
                     (13, "meshed_service"): path,
                     (13, "meshed_service_mutate"): ("cni_update",),
-                    (13, "meshed_service_scale"): path}
+                    (13, "meshed_service_scale"): path,
+                    (14, "granite-3-2b"): ("flash_attention",),
+                    (14, "granite-3-2b_x2"): ("flash_attention",),
+                    (14, "rwkv6-7b"): ("wkv6",)}
         for (num, entry), names in required.items():
             for name in names:
                 if num in phases and main.counts[(num, entry)][name] == 0:

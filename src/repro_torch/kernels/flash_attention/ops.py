@@ -14,6 +14,15 @@ padded with zero columns to the next of them (the scale stays 1/sqrt(D)).
 Each call is one kernel launch: the decode kernel below 16 query rows, the
 prefill kernel from 16 up.  The wrapper carries a ``launches`` counter that
 grows by one per kernel launch and nowhere else.
+
+Gradients: when grad mode is on and q, k or v requires grad, the call goes
+through ``FlashAttention`` (a ``torch.autograd.Function``).  Its forward is
+the same call (the kernel on a CUDA tensor, the plain version on a CPU
+tensor); its backward recomputes ``ref.mha_plain`` on the saved q, k and v
+and returns that VJP for q, k and v, as the reference's ``custom_vjp``
+differentiates ``mha_ref``.  There is no backward kernel.  A recompute of
+the forward (``torch.utils.checkpoint``) launches the kernel again and
+counts again.
 """
 
 from __future__ import annotations
@@ -73,6 +82,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len=None) -> torch.Tensor:
     """(B, Hq, Sq, D) x (B, Hkv, Skv, D)^2 -> (B, Hq, Sq, D) in q.dtype."""
     _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset, kv_len)
+    return _forward(q, k, v, causal, window, q_offset, kv_len)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel (or, on a CPU tensor, the plain version) forward; the
+    plain version's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(causal=causal, window=window, q_offset=q_offset,
+                        kv_len=kv_len)
+        return _forward(q, k, v, causal, window, q_offset, kv_len)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [x.detach().requires_grad_(need) for x, need
+                  in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wanted = [x for x in inputs if x.requires_grad]
+        with torch.enable_grad():
+            out = ref.mha_plain(*inputs, **ctx.args)
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return tuple(next(grads) if x.requires_grad else None
+                     for x in inputs) + (None,) * 4
+
+
+def _forward(q, k, v, causal, window, q_offset, kv_len):
     if q.device.type == "cpu":
         return ref.mha_plain(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, kv_len=kv_len)

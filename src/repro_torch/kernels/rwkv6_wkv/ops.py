@@ -9,6 +9,16 @@ float32)``, the state after the last step, so chained calls equal one
 call.  Any T is taken as it is (the reference pads T to its time tile).
 The wrapper carries a ``launches`` counter that grows by one per kernel
 launch and nowhere else.
+
+Gradients: when grad mode is on and any of r, k, v, w, u or state0
+requires grad, the call goes through ``WKV6`` (a
+``torch.autograd.Function``).  Its forward is the same call (the kernel on
+a CUDA tensor, the plain version on a CPU tensor); its backward recomputes
+``ref.wkv6_plain`` on the saved inputs and returns that VJP, with the
+cotangents of both outputs (o and the final state), for r, k, v, w, u and
+state0, as the reference's ``custom_vjp`` differentiates ``wkv6_ref``.
+There is no backward kernel.  A recompute of the forward
+(``torch.utils.checkpoint``) launches the kernel again and counts again.
 """
 
 from __future__ import annotations
@@ -66,6 +76,39 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, state0=None):
     """RWKV-6 WKV -> (o (B, H, T, Dv), state (B, H, Dk, Dv) float32)."""
     _check(r, k, v, w, u, state0)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (r, k, v, w, u, state0)):
+        return WKV6.apply(r, k, v, w, u, state0)
+    return _forward(r, k, v, w, u, state0)
+
+
+class WKV6(torch.autograd.Function):
+    """The kernel (or, on a CPU tensor, the plain version) forward; the
+    plain version's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        ctx.has_state0 = state0 is not None
+        ctx.save_for_backward(r, k, v, w, u, *(() if state0 is None
+                                                else (state0,)))
+        return _forward(r, k, v, w, u, state0)
+
+    @staticmethod
+    def backward(ctx, grad_o, grad_state):
+        inputs = [x.detach().requires_grad_(need) for x, need
+                  in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [x for x in inputs if x.requires_grad]
+        with torch.enable_grad():
+            o, state = ref.wkv6_plain(*inputs[:5],
+                                      inputs[5] if ctx.has_state0 else None)
+            grads = iter(torch.autograd.grad((o, state), wanted,
+                                             (grad_o, grad_state),
+                                             allow_unused=True))
+        out = [next(grads) if x.requires_grad else None for x in inputs]
+        return tuple(out) + ((None,) if not ctx.has_state0 else ())
+
+
+def _forward(r, k, v, w, u, state0):
     if r.device.type == "cpu":
         return ref.wkv6_plain(r, k, v, w, u, state0)
     if r.device.type == "cuda":

@@ -1,11 +1,18 @@
-"""Carry the reference's params and caches into the port.
+"""Carry params, optimizer state and caches between the reference's layout
+and the port's.
 
 The reference keeps params as a pytree with the layer weights stacked on a
 leading axis (``tree["layers"]["attn"]["wq"]`` is (L, d, h, hd)); the port
-keeps one module per layer in the same per-layer layout.  Both functions
-take the tree with numpy (or array-like) leaves, e.g.
-``jax.tree.map(np.asarray, params)``, and copy it to ``device`` (None means
-CUDA).
+keeps one module per layer in the same per-layer layout, named as
+``LM.named_parameters()`` names them (``"layers.3.attn.wq"``).  The
+``*_from_numpy`` functions take the tree with numpy (or array-like)
+leaves, e.g. ``jax.tree.map(np.asarray, params)``, and copy it to
+``device`` (None means CUDA); the ``*_to_numpy`` functions give that tree
+back with numpy leaves, which is what a checkpoint stores.  ``state_*``
+carry any dict keyed like the params (the optimizer's ``m`` and ``v``),
+whose leaves may be tensors or tuples of tensors (a factored second
+moment's (row, col) statistics, each stacked on the layer axis as the
+reference's are).
 """
 
 from __future__ import annotations
@@ -62,3 +69,89 @@ def cache_from_numpy(tree, device=None):
     if isinstance(tree, dict):
         return {name: cache_from_numpy(t, dev) for name, t in tree.items()}
     return _tensor(tree, dev)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def state_to_numpy(cfg: ModelConfig, named: dict) -> dict:
+    """A dict keyed like the params -> the reference's stacked tree, numpy
+    leaves; a tuple leaf stays a tuple of stacked arrays."""
+    tree: dict = {}
+    stacks: dict = {}
+    for name, leaf in named.items():
+        parts = name.split(".")
+        if parts[0] != "layers":
+            tree[name] = (tuple(_host(x) for x in leaf)
+                          if isinstance(leaf, tuple) else _host(leaf))
+            continue
+        stacks.setdefault(tuple(parts[2:]), {})[int(parts[1])] = leaf
+    for path, by_layer in stacks.items():
+        if sorted(by_layer) != list(range(cfg.n_layers)):
+            raise ValueError(f"{cfg.name}: layers {sorted(by_layer)} of "
+                             f"{'.'.join(path)}, expected {cfg.n_layers}")
+        leaves = [by_layer[i] for i in range(cfg.n_layers)]
+        node = tree.setdefault("layers", {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = (
+            tuple(np.stack([_host(x) for x in part]) for part in zip(*leaves))
+            if isinstance(leaves[0], tuple)
+            else np.stack([_host(x) for x in leaves]))
+    return tree
+
+
+def state_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
+    """The inverse of ``state_to_numpy``: the reference's stacked tree ->
+    a dict keyed like the params (``LM.named_parameters()`` order)."""
+    dev = resolve_device(device)
+
+    def leaf(a, i=None):
+        if isinstance(a, tuple):
+            return tuple(leaf(x, i) for x in a)
+        return _tensor(a if i is None else np.asarray(a)[i], dev)
+
+    def layer_items(node, prefix):
+        for key in sorted(node):
+            if isinstance(node[key], dict):
+                yield from layer_items(node[key], prefix + (key,))
+            else:
+                yield prefix + (key,), node[key]
+
+    layer_leaves = dict(layer_items(tree["layers"], ()))
+    named = {"embed": leaf(tree["embed"]),
+             "final_norm": leaf(tree["final_norm"])}
+    if not cfg.tie_embeddings:
+        named["unembed"] = leaf(tree["unembed"])
+    for i in range(cfg.n_layers):
+        for path in _layer_names(cfg):
+            named[".".join(("layers", str(i)) + path)] = leaf(
+                layer_leaves[path], i)
+    return named
+
+
+def _layer_names(cfg: ModelConfig) -> list[tuple[str, ...]]:
+    """One layer's parameter paths in ``named_parameters`` order."""
+    if model_kind(cfg) == "rwkv":
+        return [("norm1",), ("norm2",)] + [("rwkv", n) for n in RWKV6.NAMES]
+    return ([("norm1",), ("norm2",)] + [("attn", n) for n in GQA.NAMES]
+            + [("ffn", n) for n in SwiGLU.NAMES])
+
+
+def params_to_numpy(cfg: ModelConfig, lm: LM) -> dict:
+    """The port's ``LM`` -> the reference's ``init_params`` tree (stacked,
+    numpy leaves); the inverse of ``params_from_numpy``."""
+    return state_to_numpy(cfg, dict(lm.named_parameters()))
+
+
+def stacked_groups(names) -> list[list[str]]:
+    """Param names grouped by the reference's stacked leaf they slice
+    (``"layers.0.attn.wq"`` and ``"layers.1.attn.wq"`` together), in first
+    appearance order: what a per-tensor statistic of the reference spans."""
+    groups: dict = {}
+    for name in names:
+        parts = name.split(".")
+        key = ".".join(parts[:1] + parts[2:]) if parts[0] == "layers" else name
+        groups.setdefault(key, []).append(name)
+    return list(groups.values())

@@ -6,7 +6,9 @@ Weights keep the reference's layouts (``wq`` (d, h, hd), ``wo`` (h, hd, d),
 without transposes (``models/convert.py``).  Layers with weights are
 ``nn.Module``s whose parameters carry the reference's names; the maths are
 plain functions on tensors that take such a module as ``p``.  Parameters
-are made with ``requires_grad=False``: this slice ports inference only.
+are made with ``requires_grad=False``, so serving builds no graph; a
+trainer turns grads on with ``params.requires_grad_(True)``, and every
+function here, the kernels included, then passes them through.
 
 Attention maths (``attention_math``), by the config's ``attn_impl``:
   * ``auto`` / ``kernel`` — ``kernels/flash_attention``: the CUDA kernel on

@@ -1,20 +1,30 @@
-"""Model assembly of the port: init, prefill ``forward`` and one-token
-``decode_step`` for the dense GQA and RWKV families.
+"""Model assembly of the port: init, the training/prefill ``forward``, the
+next-token ``loss_fn`` and one-token ``decode_step`` for the dense GQA and
+RWKV families.
 
 Layers run as a Python loop over a ``ModuleList`` (the reference scans
-params stacked on a layer axis).  The cache keeps the reference's stacked
-layout, a dict of tensors with a leading layer axis, so a reference cache
-carries across (``convert.cache_from_numpy``); ``decode_step`` updates it
-in place and returns it.  Vocab tables are padded to a multiple of 128 and
-padded logit columns pinned to -1e30, as in the reference, so they never
-win an argmax.  The other families (moe, MLA, hybrid, encdec, vlm), the
-loss and the MTP head are not ported yet (ROADMAP A12).
+params stacked on a layer axis).  ``cfg.remat`` wraps each layer as the
+reference's wraps its scan body: ``"full"`` recomputes the layer in the
+backward (``torch.utils.checkpoint``), ``"dots"`` saves only the outputs of
+matrix products without batch dimensions and recomputes the rest, and
+``"none"`` saves everything; the three give equal losses and grads.  The
+cache keeps the reference's stacked layout, a dict of tensors with a
+leading layer axis, so a reference cache carries across
+(``convert.cache_from_numpy``); ``decode_step`` updates it in place and
+returns it.  Vocab tables are padded to a multiple of 128 and padded logit
+columns pinned to -1e30, as in the reference, so they never win an argmax
+nor enter the loss.  The other families (moe, MLA, hybrid, encdec, vlm)
+and the MTP head are not ported yet (ROADMAP A12 (b)).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -162,8 +172,10 @@ def _layer_apply(layer: Layer, x, cfg: ModelConfig, kind: str, *, impl: str,
 
 
 def _embed(params: LM, tokens) -> torch.Tensor:
+    """The rows of ``embed``; ``F.embedding``'s backward sums each row's
+    gradient in a fixed order on the card, where ``index_put`` would not."""
     tokens = torch.as_tensor(tokens, device=params.device).long()
-    return params.embed[tokens]
+    return F.embedding(tokens, params.embed)
 
 
 def _logits(params: LM, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -177,21 +189,116 @@ def _logits(params: LM, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-@torch.no_grad()
-def forward(params: LM, cfg: ModelConfig, tokens, *, last_only: bool = False):
-    """Prefill forward, inference only: tokens (B, S) -> (logits (B, S|1,
-    V_pad) float32, aux).  No loss and no MTP head yet (ROADMAP A12)."""
+def _saves_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep matrix products without batch dimensions (the
+    reference's ``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    unbatched = op is torch.ops.aten.mm.default or (
+        op is torch.ops.aten.bmm.default and args[0].shape[0] == 1)
+    return (ckpt.CheckpointPolicy.MUST_SAVE if unbatched
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _rematted(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under ``cfg.remat`` when grads are being taken."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _saves_dots))
+    raise ValueError(f"unknown remat {cfg.remat!r}; expected 'none', 'full' "
+                     f"or 'dots'")
+
+
+def forward(params: LM, cfg: ModelConfig, tokens, *, last_only: bool = False,
+            return_hidden: bool = False):
+    """Training/prefill forward: tokens (B, S) -> (logits (B, S|1, V_pad)
+    float32, aux), or with ``return_hidden`` the final-normed hidden state
+    (B, S|1, d) in the logits' place (the chunked CE's input).  Grads flow
+    when grad mode is on and the params require them."""
     kind = model_kind(cfg)
     impl = L.resolve_attn_impl(cfg)
     x = _embed(params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+
+    def layer_fn(layer, h):
+        return _layer_apply(layer, h, cfg, kind, impl=impl,
+                            positions=positions).to(h.dtype)
+
     for layer in params.layers:
-        x = _layer_apply(layer, x, cfg, kind, impl=impl,
-                         positions=positions).to(x.dtype)
+        x = _rematted(cfg, layer_fn, layer, x)
     h = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     if last_only:
         h = h[:, -1:]
-    return _logits(params, cfg, h), {"moe_dropped": 0.0}
+    aux = {"moe_dropped": 0.0}
+    if return_hidden:
+        return h, aux
+    return _logits(params, cfg, h), aux
+
+
+def _ce_chunk(m_run, s_run, gold, h, w_c, lab, start: int, vocab: int):
+    """One vocab chunk of the streamed CE: the running (max, sumexp, gold)
+    updated with columns ``start .. start + w_c.shape[1]``."""
+    vc = w_c.shape[1]
+    lg = (h @ w_c).float()
+    if start + vc > vocab:  # mask padded vocab columns
+        col = start + torch.arange(vc, device=lg.device)
+        lg = torch.where(col < vocab, lg, torch.full_like(lg, -1e30))
+    m_new = torch.maximum(m_run, lg.amax(-1))
+    s_run = s_run * torch.exp(m_run - m_new) + torch.exp(
+        lg - m_new[..., None]).sum(-1)
+    # gold logit if the label lands in this chunk
+    in_chunk = (lab >= start) & (lab < start + vc)
+    idx = (lab - start).clamp(0, vc - 1)
+    g_c = lg.gather(-1, idx[..., None])[..., 0]
+    return m_new, s_run, torch.where(in_chunk, g_c, gold)
+
+
+def _chunked_ce(params: LM, cfg: ModelConfig, h: torch.Tensor, labels):
+    """Streaming CE: the unembed in vocab chunks of ``cfg.ce_chunk`` with a
+    running (max, sumexp, gold) triple, so the (B, S, V) logits never
+    exist; each chunk is recomputed in the backward (the reference's
+    ``@jax.checkpoint`` body).  Returns (lse, gold), each (B, S)."""
+    vp = vocab_padded(cfg)
+    w = params.embed.t() if cfg.tie_embeddings else params.unembed
+    vc = cfg.ce_chunk
+    if vp % vc:
+        raise ValueError(f"ce_chunk {vc} does not divide the padded vocab {vp}")
+    lab = labels.clamp_min(0)
+    m = torch.full(labels.shape, -1e30, dtype=torch.float32, device=h.device)
+    s_sum = torch.zeros(labels.shape, dtype=torch.float32, device=h.device)
+    gold = torch.full(labels.shape, -1e30, dtype=torch.float32, device=h.device)
+    for start in range(0, vp, vc):
+        args = (m, s_sum, gold, h, w[:, start:start + vc], lab, start,
+                cfg.vocab)
+        m, s_sum, gold = (
+            ckpt.checkpoint(_ce_chunk, *args, use_reentrant=False)
+            if torch.is_grad_enabled() else _ce_chunk(*args))
+    return m + torch.log(s_sum.clamp_min(1e-30)), gold
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch: dict):
+    """Masked next-token CE over ``batch["tokens"]`` and ``batch["labels"]``
+    (B, S), numpy or tensors; labels below 0 are masked out.  Returns
+    (loss, metrics) with metrics ``{"loss", "moe_dropped"}``."""
+    if cfg.mtp:
+        raise NotImplementedError(f"{cfg.name}: the MTP head is not ported "
+                                  f"yet (ROADMAP item A12 (b))")
+    labels = torch.as_tensor(batch["labels"], device=params.device).long()
+    if cfg.ce_chunk:
+        # run the trunk only (skip _logits), then stream the CE
+        h, aux = forward(params, cfg, batch["tokens"], return_hidden=True)
+        lse, gold = _chunked_ce(params, cfg, h, labels)
+    else:
+        logits, aux = forward(params, cfg, batch["tokens"])
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    loss = ((lse - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+    return loss, {"loss": loss, "moe_dropped": aux["moe_dropped"]}
 
 
 @torch.no_grad()

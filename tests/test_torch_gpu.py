@@ -932,3 +932,111 @@ def test_sharded_wrappers_count_one_launch_per_shard(cuda):
     store.add_edges([[0, 10], [600, 1999]])  # shards 0, and 1 and 3
     after = _launches()
     assert after["cni_update"] - before["cni_update"] == 3
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels under autograd
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hq,hkv,s,window,causal", [
+    (4, 2, 80, None, True), (8, 1, 300, 64, True), (4, 4, 33, None, False)])
+def test_flash_attention_function_grads_on_card(cuda, hq, hkv, s, window,
+                                                causal):
+    """With grad on, the call launches the kernel (the counter rises) and
+    its grads are the plain version's VJP."""
+    gen = torch.Generator(cuda).manual_seed(s)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((2, hq, s, 64), (2, hkv, s, 64), (2, hkv, s, 64)))
+    cot = torch.randn((2, hq, s, 64), generator=gen, device=cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(*leaves, causal, window)
+    assert fa_ops.flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, leaves, cot)
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want_out = fa_ref.mha_plain(*plain, causal=causal, window=window)
+    want = torch.autograd.grad(want_out, plain, cot)
+    torch.testing.assert_close(out, want_out, rtol=2e-5, atol=2e-5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+def test_wkv6_function_grads_on_card(cuda, with_state):
+    gen = torch.Generator(cuda).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    b, h, t, d = 2, 4, 40, 64
+    inputs = [randn(b, h, t, d), randn(b, h, t, d), randn(b, h, t, d),
+              torch.rand((b, h, t, d), generator=gen, device=cuda) * 0.79 + 0.2,
+              randn(h, d)] + ([randn(b, h, d, d)] if with_state else [])
+    cot = (randn(b, h, t, d), randn(b, h, d, d))
+    leaves = [x.clone().requires_grad_(True) for x in inputs]
+    before = wkv_ops.wkv6.launches
+    o, s = wkv_ops.wkv6(*leaves, *(() if with_state else (None,)))
+    assert wkv_ops.wkv6.launches == before + 1
+    got = torch.autograd.grad((o, s), leaves, cot)
+    plain = [x.clone().requires_grad_(True) for x in inputs]
+    o_p, s_p = wkv_ref.wkv6_plain(*plain, *(() if with_state else (None,)))
+    want = torch.autograd.grad((o_p, s_p), plain, cot)
+    torch.testing.assert_close(o, o_p, rtol=0, atol=0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "rwkv6-7b"])
+def test_loss_grads_on_card_launch_kernels(cuda, arch, remat):
+    """``loss_fn`` with grads on the card launches each layer's kernel in
+    the forward, and again in a full remat's recompute; loss and grads
+    equal the CPU's."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+
+    cfg, p_cpu, p_gpu = lm_pair(arch, cuda)
+    cfg = dataclasses.replace(cfg, remat=remat)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab, size=(2, 24)),
+             "labels": rng.integers(0, cfg.vocab, size=(2, 24))}
+    kernel = fa_ops.flash_attention if arch != "rwkv6-7b" else wkv_ops.wkv6
+    out = []
+    for params in (p_cpu, p_gpu):
+        params.requires_grad_(True)
+        named = dict(params.named_parameters())
+        before = kernel.launches
+        loss, _ = M.loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True, materialize_grads=True)
+        out.append((loss.detach().cpu(), [g.cpu() for g in grads],
+                    kernel.launches - before))
+    (loss_c, grads_c, n_cpu), (loss_g, grads_g, n_gpu) = out
+    assert n_cpu == 0
+    assert n_gpu == cfg.n_layers * (2 if remat == "full" else 1)
+    torch.testing.assert_close(loss_g, loss_c, rtol=1e-5, atol=1e-6)
+    for g, c in zip(grads_g, grads_c):
+        torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-5)
+
+
+def test_trainer_on_card_equals_cpu(cuda):
+    import copy
+
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg, p_cpu, _ = lm_pair("granite-3-2b", cuda)
+    hists = []
+    for device in ("cpu", cuda):
+        tr = Trainer(cfg, TrainerConfig(steps=4, lr=3e-3, warmup=1, log_every=1),
+                     global_batch=4, seq_len=32, device=device)
+        before = fa_ops.flash_attention.launches
+        params, state, hist = tr.run(params=copy.deepcopy(p_cpu).to(device))
+        assert params.embed.device.type == torch.device(device).type
+        assert state.step.device.type == torch.device(device).type
+        hists.append((hist, fa_ops.flash_attention.launches - before))
+    (h_cpu, n_cpu), (h_gpu, n_gpu) = hists
+    assert n_cpu == 0 and n_gpu == 4 * cfg.n_layers
+    np.testing.assert_allclose([m["loss"] for _, m in h_gpu],
+                               [m["loss"] for _, m in h_cpu], rtol=1e-4)
