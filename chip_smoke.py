@@ -62,7 +62,8 @@ Phases:
               recorded decode calls (8 x 64 heads, T
               1) and a 1024-step chunk with a 1000 + 24 split-T chain, bit
               for bit (it follows the plain version's float32 evaluation
-              order); times as above, and for flash_attention also
+              order), and ptxas's registers and spills for the WKV forward
+              and backward kernels; times as above, and for flash_attention also
               ``scaled_dot_product_attention(..., enable_gqa=True)`` as its
               library time.
 4. HUMAN    — ``SubgraphQueryEngine(g, enumerator="device")`` on the
@@ -118,7 +119,8 @@ Phases:
               meshed service's mutations, and no cni_encode in its
               restore; on phase 14 flash_attention on granite-3-2b's
               ``Trainer.run`` at full depth and at 2 layers (the straight,
-              the killed and the resumed job), and wkv6 on rwkv6-7b's.
+              the killed and the resumed job), and wkv6 and wkv6_backward
+              on rwkv6-7b's.
 9. store    — ``GraphStore`` + ``IncrementalIndex`` on the card: the
               join-heavy graph with ``random_update_batches(.., 8, 4096,
               delete_frac=0.35, seed=1)``, and the scale graph seeded as a
@@ -269,7 +271,11 @@ Phases:
               after its step-15 commit and finished by a new ``Trainer``
               ends on the straight run's params within 2e-4; (c) rwkv6-7b
               at full width with 2 layers, B 4 x T 256, 5 steps: step ms,
-              tokens/s, peak memory, 4 wkv6 launches a step; (d) loss and
+              tokens/s, peak memory, exactly 4 wkv6 launches (2 forward, 2
+              in the recompute) and 2 wkv6_backward launches a step, then
+              step 2 of a new 2-step job under torch.profiler (outside the
+              counts): the device's busy share, and the GEMM and WKV
+              kernels' shares of the busy time; (d) loss and
               grads of both at 2 full-width layers on the kernels against
               ``attn_impl="ref"`` on the same params and batch (granite:
               loss within 1e-5 relative, each grad leaf within 1e-3 of its
@@ -277,8 +283,15 @@ Phases:
               prefill at (4, 32/8, 512, 64) and wkv6 at (4, 64, 256, 64)
               against their plain versions, timed as in phase 3 (SDPA with
               ``is_causal`` and ``enable_gqa`` as the prefill's library
-              time), and each one's plain backward (CUDA events) as a share
-              of (a)'s or (c)'s step.
+              time), and each one's backward through its autograd Function
+              (CUDA events) as a share of (a)'s or (c)'s step; wkv6_backward
+              held against its plain version (each grad within 1e-5 of its
+              leaf's largest value, 1e-2 in bfloat16, two calls equal bit
+              for bit) at the training call, with a random state0 and both
+              cotangents, and at a ragged (3, 5, 37, 48/40) case in float32
+              and bfloat16; its device time beside its plain version's, the
+              autograd VJP of the plain recurrence (the backward before the
+              kernel) and its bound.
 
 Any failure propagates: the script exits non-zero and prints no result.
 The last line of a passing run is
@@ -1297,16 +1310,26 @@ def profile(tag, fn, top=8, host_top=0):
     (``aten::…``, on the CPU side) are left out, as they repeat their
     kernels' device time, unless ``host_top`` asks for the operators with
     the most host (self CPU) time."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    with new_profiler() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    return profile_report(tag, prof, wall, top, host_top)
+
+
+def new_profiler():
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    return torch_profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA])
+
+
+def profile_report(tag, prof, wall, top=8, host_top=0):
+    """Log what ``profile`` logs for a finished profiler ``prof`` over
+    ``wall`` ms; returns the device events as (key, count, ms)."""
     ops = [(e.key, e.count, e.self_device_time_total / 1e3)
            for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1320,6 +1343,7 @@ def profile(tag, fn, top=8, host_top=0):
             if e.device_type == torch.autograd.DeviceType.CPU]
     for key, count, ms in sorted(host, key=lambda o: -o[2])[:host_top]:
         log(f"    {ms:10.3f} ms  {count:6d} x  {key[:90]} (host)")
+    return ops
 
 
 def profile_filters(core, graphs, g, queries):
@@ -2536,6 +2560,29 @@ def wkv_bound(r, v, u):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# operations a state cell and step of the WKV backward: 11 for the VJP's
+# sums (dr, dw, dk, dv: a product and a sum each; dS: two products and a
+# sum) and 3 to rebuild S_{t-1} (k v, w S and their sum)
+WKV_BWD_OPS = 14
+
+
+def wkv_bwd_bound(r, v, u, state0, grad_state):
+    """Least time for one WKV backward: r, k, w, v and the cotangent of o
+    read once, dr, dk, dw and dv written once, u and du, state0 and the
+    final state's cotangent (where given) and dstate0 (with state0), against
+    ``WKV_BWD_OPS`` operations per state cell and step."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    # per step: r, k, w, v, g read and dr, dk, dw, dv written
+    per_step = (3 * dk + 2 * dv) + (3 * dk + dv)
+    states = 2 * (state0 is not None) + (grad_state is not None)
+    n_bytes = (per_step * b * h * t * r.element_size() + 2 * u.numel() * 4
+               + states * b * h * dk * dv * 4)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = WKV_BWD_OPS * b * h * t * dk * dv / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def check_flash(fa_ops, fa_ref, name, q, k, v, kw):
     got = fa_ops.flash_attention(q, k, v, **kw)
     again = fa_ops.flash_attention(q, k, v, **kw)
@@ -2574,10 +2621,11 @@ def check_wkv(wkv_ops, wkv_ref, name, r, k, v, w, u, s0):
     return err, (o, s)
 
 
-def ptxas_report(built, names, smem):
+def ptxas_report(built, names, smem=None):
     """Registers, spill bytes and static shared memory that ptxas printed
     (``-Xptxas -v``) for each instantiation of the kernels in ``names``,
-    beside ``smem``: the dynamic shared memory of the path's launch."""
+    beside ``smem`` (if given): the dynamic shared memory of the path's
+    launch."""
     props, fn = {}, None
     for line in built.log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
@@ -2598,7 +2646,8 @@ def ptxas_report(built, names, smem):
             entry["static_smem"] = int(sm.group(1)) if sm else 0
     for fn, entry in sorted(props.items()):
         log(f"  ptxas {fn}: {entry}")
-    log(f"  dynamic shared memory at the path's shapes: {smem}")
+    if smem is not None:
+        log(f"  dynamic shared memory at the path's shapes: {smem}")
     return props
 
 
@@ -2740,6 +2789,8 @@ def phase_lm_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref):
         "wkv6_chunk", lambda: wkv_ops.wkv6(r, k, v, w, u, s0),
         lambda: wkv_ref.wkv6_plain(r, k, v, w, u, s0), wkv_bound(r, v, u),
         f"chunk B*H={b * h} T={t} 64x64")
+    ptxas_report(wkv_ops.library(),
+                 ("wkv6_kernel", "wkv6_bwd_kernel", "wkv6_bwd_finish"))
     return {"flash_attention": fa_err, "wkv6": wkv_err}, timings
 
 
@@ -3458,23 +3509,67 @@ def train_rwkv(main, tm, held):
     cfg = dataclasses.replace(tm.get_config("rwkv6-7b"), n_layers=2)
     b, t = TRAIN_SHAPE["rwkv6-7b"]
     log(f"[14 train] (c) {cfg.name} at 2 layers: d {cfg.d_model}, remat {cfg.remat!r}, "
-        f"B x T {(b, t)}; the plain WKV backward holds T states of "
-        f"{(b, cfg.d_model // 64, 64, 64)} float32, "
-        f"{t * b * cfg.d_model * 64 * 4 / 1e9:.2f} GB a chain")
+        f"B x T {(b, t)}; the WKV backward kernel's scratch holds a state of "
+        f"{(b, cfg.d_model // 64, 64, 64)} float32 every 8 steps, "
+        f"{-(-t // 8) * b * cfg.d_model * 64 * 4 / 1e9:.3f} GB a layer")
     torch.cuda.reset_peak_memory_stats()
     params, _, hist = train_job(main, tm, cfg, "rwkv6-7b", (b, t),
                                 dict(steps=TRAIN_RWKV_STEPS, lr=3e-4, warmup=1,
                                      log_every=1))
     log(f"  {sum(p.numel() for p in params.parameters()):,} params, "
         f"{state_gb(params):.2f} GB of params, grads, m and v")
-    med, per_step = report_steps("(c)", (b, t), hist,
-                                 main.counts[(14, "rwkv6-7b")], "wkv6", 2, held)
-    if per_step != 2 * cfg.n_layers:
-        raise AssertionError(f"(c): {per_step} wkv6 launches a step, expected "
-                             f"{2 * cfg.n_layers}")
+    launches = main.counts[(14, "rwkv6-7b")]
+    med, per_step = report_steps("(c)", (b, t), hist, launches, "wkv6", 2, held)
+    bwd_per_step = launches["wkv6_backward"] / len(hist)
+    log(f"  (c) wkv6_backward {bwd_per_step:g} launches a step")
+    if per_step != 2 * cfg.n_layers or bwd_per_step != cfg.n_layers:
+        raise AssertionError(f"(c): {per_step} wkv6 and {bwd_per_step} "
+                             f"wkv6_backward launches a step, expected "
+                             f"{2 * cfg.n_layers} (forward and remat "
+                             f"recompute) and {cfg.n_layers}")
     del params
     torch.cuda.empty_cache()
+    profile_train_step(tm, cfg, (b, t))
     return med, cfg.n_layers
+
+
+def profile_train_step(tm, cfg, shape):
+    """Step 2 of a new 2-step job of (c)'s config under torch.profiler,
+    outside every launch count: its wall time, the device's busy time and
+    share, and how much of the busy time the GEMM kernels (names holding
+    "gemm") and the WKV kernels take.  Without device events the shares
+    are logged as not measured."""
+    b, s = shape
+    trainer = tm.Trainer(cfg, tm.TrainerConfig(steps=2, lr=3e-4, warmup=1,
+                                               log_every=1),
+                         global_batch=b, seq_len=s, seed=0, device="cuda")
+    prof, span = new_profiler(), {}
+
+    def on_metrics(step, _):
+        torch.cuda.synchronize()
+        if step == 1:
+            prof.start()
+            span["t0"] = time.perf_counter()
+        else:
+            span["wall"] = (time.perf_counter() - span["t0"]) * 1e3
+            prof.stop()
+
+    _, _, hist = trainer.run(generator=torch.Generator("cuda").manual_seed(0),
+                             on_metrics=on_metrics)
+    wall = span["wall"]
+    ops = profile_report(f"(c) {cfg.name} step 2", prof, wall)
+    busy = sum(ms for _, _, ms in ops)
+    if busy == 0:
+        log("  (c) profiled step: no device events; busy and GEMM shares "
+            "not measured")
+        return
+    gemm = sum(ms for key, _, ms in ops if "gemm" in key.lower())
+    wkv = sum(ms for key, _, ms in ops if "wkv6" in key)
+    log(f"  (c) profiled step (its own step time {hist[-1][1]['step_time_s'] * 1e3:.1f} "
+        f"ms): device busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f} "
+        f"%); GEMM kernels {gemm:.3f} ms ({100 * gemm / busy:.1f} % of busy, "
+        f"{100 * gemm / wall:.1f} % of wall); WKV kernels {wkv:.3f} ms "
+        f"({100 * wkv / busy:.2f} % of busy)")
 
 
 def loss_grads(tm, cfg, params, batch):
@@ -3570,14 +3665,73 @@ def train_kernel_times(fa_ops, fa_ref, wkv_ops, wkv_ref, steps):
         "wkv6_train", lambda: wkv_ops.wkv6(r, kk, vv, w, u, s0),
         lambda: wkv_ref.wkv6_plain(r, kk, vv, w, u, s0), wkv_bound(r, vv, u),
         f"training chunk B*H={b * 64} T={t} 64x64")
-    bwd = backward_ms(wkv_ops.wkv6, (r, kk, vv, w, u, s0),
-                      (randn(b, 64, t, 64), randn(b, 64, 64, 64)), reps=2)
+    g_o, g_s = randn(b, 64, t, 64), randn(b, 64, 64, 64)
+    # the backward kernel against its plain version: the training call (the
+    # model passes a zero state0, and the final state's cotangent is None),
+    # both cotangents with a random state0, and a ragged bfloat16 case
+    err_bwd = 0.0
+    ragged = [randn(3, 5, 37, 48), randn(3, 5, 37, 48), randn(3, 5, 37, 40),
+              torch.exp(-torch.exp(randn(3, 5, 37, 48) * 0.5 - 1.0)),
+              randn(5, 48), None]
+    for name, args, cot, tol in (
+            ("train", (r, kk, vv, w, u, s0), (g_o, None), 1e-5),
+            ("train_state", (r, kk, vv, w, u, randn(b, 64, 64, 64)),
+             (g_o, g_s), 1e-5),
+            ("ragged", ragged, (randn(3, 5, 37, 40), randn(3, 5, 48, 40)), 1e-5),
+            ("ragged_bf16", [x.bfloat16() for x in ragged[:4]] + ragged[4:],
+             (randn(3, 5, 37, 40).bfloat16(), None), 1e-2)):
+        err_bwd = max(err_bwd, check_wkv_backward(wkv_ops, wkv_ref, name,
+                                                  args, cot, tol))
+    bound = wkv_bwd_bound(r, vv, u, s0, None)
+    tim["wkv6_backward"] = time_kernel(
+        "wkv6_backward",
+        lambda: wkv_ops.wkv6_backward(r, kk, vv, w, u, s0, g_o, None),
+        lambda: wkv_ref.wkv6_backward_plain(r, kk, vv, w, u, s0, g_o, None),
+        bound, f"training backward B*H={b * 64} T={t} 64x64 "
+        f"({WKV_BWD_OPS} operations a cell and step)")
+    # the backward before the kernel: autograd of the plain recurrence
+    old = backward_ms(wkv_ref.wkv6_plain, (r, kk, vv, w, u, s0),
+                      (g_o, g_s), reps=2)
+    bwd = backward_ms(wkv_ops.wkv6, (r, kk, vv, w, u, s0), (g_o, g_s))
     step_ms, layers = steps["c"]
     share = layers * bwd / step_ms
-    log(f"  (e) wkv6 plain backward {bwd:.4f} ms a layer; {layers} a step: "
+    log(f"  (e) wkv6 backward through its Function {bwd:.4f} ms a layer (the "
+        f"kernel {tim['wkv6_backward']['ms']:.5f} ms on the device), the "
+        f"autograd VJP of the plain recurrence {old:.3f} ms; {layers} a step: "
         f"{share * 100:.2f} % of (c)'s median step {step_ms:.1f} ms")
-    tim["wkv6_train"].update(backward_ms=bwd, step_share=share)
-    return {"flash_attention": err_fa, "wkv6": err_wkv}, tim
+    tim["wkv6_train"].update(backward_ms=bwd, step_share=share,
+                             plain_vjp_ms=old)
+    return ({"flash_attention": err_fa, "wkv6": err_wkv,
+             "wkv6_backward": err_bwd}, tim)
+
+
+def check_wkv_backward(wkv_ops, wkv_ref, name, args, cot, tol):
+    """wkv6_backward against its plain version: each grad within ``tol`` of
+    its leaf's largest plain value (float32 sums in another order; 1e-2 for
+    grads rounded to bfloat16), and a second call equal bit for bit;
+    returns the largest absolute difference."""
+    got = wkv_ops.wkv6_backward(*args, *cot)
+    again = wkv_ops.wkv6_backward(*args, *cot)
+    torch.cuda.synchronize()
+    want = wkv_ref.wkv6_backward_plain(*args, *cot)
+    err, rel = 0.0, {}
+    for leaf, gg, aa, ww in zip(("r", "k", "v", "w", "u", "state0"), got,
+                                again, want):
+        if ww is None:
+            continue
+        diff = float((gg.float() - ww.float()).abs().max())
+        rel[leaf] = diff / max(float(ww.float().abs().max()), 1e-30)
+        err = max(err, diff)
+        if not torch.equal(gg, aa) or gg.dtype != ww.dtype \
+                or not torch.isfinite(gg.float()).all() or rel[leaf] > tol:
+            raise AssertionError(f"wkv6_backward differs from its plain "
+                                 f"version on {name} at {leaf}: {rel[leaf]} "
+                                 f"of the leaf's max (limit {tol}), "
+                                 f"repeatable {torch.equal(gg, aa)}")
+    log(f"  wkv6_backward {name}: r {tuple(args[0].shape)} "
+        f"{str(args[0].dtype)[6:]}: max abs err {err:.3g}; of each leaf's max "
+        f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} } (limit {tol:g})")
+    return err
 
 
 def phase_train(main, fa_ops, fa_ref, wkv_ops, wkv_ref, stores):
@@ -3746,7 +3900,7 @@ def main(argv=None) -> int:
                     (13, "meshed_service_scale"): path,
                     (14, "granite-3-2b"): ("flash_attention",),
                     (14, "granite-3-2b_x2"): ("flash_attention",),
-                    (14, "rwkv6-7b"): ("wkv6",)}
+                    (14, "rwkv6-7b"): ("wkv6", "wkv6_backward")}
         for (num, entry), names in required.items():
             for name in names:
                 if num in phases and main.counts[(num, entry)][name] == 0:
@@ -3778,7 +3932,13 @@ def main(argv=None) -> int:
              "src/repro/kernels/flash_attention/kernel.py:87"),
             ("wkv6", "rwkv6_wkv/csrc/wkv6.cu",
              "src/repro/kernels/rwkv6_wkv/kernel.py:72"),
+            # no TPU kernel: the VJP the reference's custom_vjp takes of
+            # wkv6_ref through XLA (phase 14 times it)
+            ("wkv6_backward", "rwkv6_wkv/csrc/wkv6.cu",
+             "src/repro/kernels/rwkv6_wkv/ops.py:57"),
         ):
+            if name not in timings:  # wkv6_backward without phase 14
+                continue
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/{source}",

@@ -530,6 +530,7 @@ def test_flash_attention_is_deterministic(cuda, case, dtype):
 WKV_CASES = [  # (b, h, t, dk, dv)
     (2, 3, 70, 16, 16), (1, 2, 64, 32, 16), (1, 1, 128, 64, 64),
     (8, 64, 1, 64, 64), (1, 4, 1000, 64, 64), (2, 2, 17, 128, 128),
+    (2, 3, 45, 128, 64), (1, 2, 9, 100, 48),
 ]
 
 
@@ -568,6 +569,70 @@ def test_wkv6_equals_plain_version(cuda, case):
     assert ob.dtype == torch.bfloat16
     torch.testing.assert_close(ob, ob_p, rtol=0, atol=0)
     torch.testing.assert_close(sb, sb_p, rtol=0, atol=0)
+
+
+WKV_BWD_CASES = [  # (b, h, t, dk, dv)
+    (2, 3, 70, 16, 16), (1, 2, 64, 32, 16), (2, 2, 17, 128, 128),
+    (4, 8, 33, 64, 64), (1, 2, 21, 24, 40), (3, 2, 1, 64, 64),
+    (1, 1, 9, 100, 72),
+]
+
+
+def leaf_err(got, want):
+    """Largest difference over the leaf's largest value."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("case", WKV_BWD_CASES)
+def test_wkv6_backward_equals_plain_backward(cuda, case, with_state):
+    """The backward kernel against ``ref.wkv6_backward_plain`` and the
+    autograd VJP of ``wkv6_plain`` on the card: each leaf within 1e-5 of its
+    largest value (float32 sums in another order), one launch a call, and
+    a second call equal bit for bit; bfloat16 inputs within 1e-2 (each grad
+    rounded to bfloat16 once); a None cotangent on either output."""
+    b, h, t, dk, dv = case
+    gen = torch.Generator(cuda).manual_seed(sum(case) + with_state)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    inputs = [randn(b, h, t, dk), randn(b, h, t, dk), randn(b, h, t, dv),
+              torch.exp(-torch.exp(randn(b, h, t, dk) * 0.5 - 1.0)),
+              randn(h, dk), randn(b, h, dk, dv) if with_state else None]
+    g_o, g_s = randn(b, h, t, dv), randn(b, h, dk, dv)
+    before = wkv_ops.wkv6_backward.launches
+    got = wkv_ops.wkv6_backward(*inputs, g_o, g_s)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv6_backward.launches == before + 1
+    again = wkv_ops.wkv6_backward(*inputs, g_o, g_s)
+    want = wkv_ref.wkv6_backward_plain(*inputs, g_o, g_s)
+    leaves = [x.clone().requires_grad_(True) for x in inputs if x is not None]
+    o_p, s_p = wkv_ref.wkv6_plain(*leaves[:5], leaves[5] if with_state else None)
+    want_ag = torch.autograd.grad((o_p, s_p), leaves, (g_o, g_s))
+    assert (got[5] is None) == (not with_state)
+    for i, (gg, aa, ww) in enumerate(zip(got, again, want)):
+        if ww is None:
+            continue
+        assert gg.dtype == ww.dtype and gg.shape == ww.shape
+        assert torch.equal(gg, aa), i
+        assert leaf_err(gg, ww) <= 1e-5, (i, leaf_err(gg, ww))
+        assert leaf_err(gg, want_ag[i]) <= 1e-5, (i, leaf_err(gg, want_ag[i]))
+    for g_o_, g_s_ in ((None, g_s), (g_o, None), (None, None)):
+        got = wkv_ops.wkv6_backward(*inputs, g_o_, g_s_)
+        want = wkv_ref.wkv6_backward_plain(*inputs, g_o_, g_s_)
+        for gg, ww in zip(got, want):
+            if ww is not None:
+                assert float((gg - ww).abs().max()) <= 1e-5 * max(
+                    float(ww.abs().max()), 1e-30)
+    low = [x.bfloat16() for x in inputs[:4]] + inputs[4:]
+    got = wkv_ops.wkv6_backward(*low, g_o.bfloat16(), g_s)
+    want = wkv_ref.wkv6_backward_plain(*low, g_o.bfloat16(), g_s)
+    for gg, ww in zip(got, want):
+        if ww is not None:
+            assert gg.dtype == ww.dtype
+            assert leaf_err(gg, ww) <= 1e-2
 
 
 def lm_pair(arch, cuda):
@@ -964,6 +1029,11 @@ def test_flash_attention_function_grads_on_card(cuda, hq, hkv, s, window,
 
 @pytest.mark.parametrize("with_state", [True, False])
 def test_wkv6_function_grads_on_card(cuda, with_state):
+    """With grad on, the call launches the forward kernel and its backward
+    the backward kernel (one launch each); the grads are the plain
+    version's autograd VJP within 1e-5 of each leaf's largest value (the
+    kernel sums in another order, so a grad near zero differs by more than
+    1e-6 of itself)."""
     gen = torch.Generator(cuda).manual_seed(7)
 
     def randn(*shape):
@@ -975,16 +1045,17 @@ def test_wkv6_function_grads_on_card(cuda, with_state):
               randn(h, d)] + ([randn(b, h, d, d)] if with_state else [])
     cot = (randn(b, h, t, d), randn(b, h, d, d))
     leaves = [x.clone().requires_grad_(True) for x in inputs]
-    before = wkv_ops.wkv6.launches
+    before = wkv_ops.launch_counts()
     o, s = wkv_ops.wkv6(*leaves, *(() if with_state else (None,)))
-    assert wkv_ops.wkv6.launches == before + 1
+    assert wkv_ops.wkv6.launches == before["wkv6"] + 1
     got = torch.autograd.grad((o, s), leaves, cot)
+    assert wkv_ops.wkv6_backward.launches == before["wkv6_backward"] + 1
     plain = [x.clone().requires_grad_(True) for x in inputs]
     o_p, s_p = wkv_ref.wkv6_plain(*plain, *(() if with_state else (None,)))
     want = torch.autograd.grad((o_p, s_p), plain, cot)
     torch.testing.assert_close(o, o_p, rtol=0, atol=0)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+        assert leaf_err(g, w) <= 1e-5, leaf_err(g, w)
 
 
 @pytest.mark.parametrize("remat", ["none", "full"])
