@@ -9,6 +9,7 @@
                                               # out-of-core store
     python3 chip_smoke.py --phases 1,2,13     # the multi-device path
     python3 chip_smoke.py --phases 1,2,14     # training (dense, RWKV-6)
+    python3 chip_smoke.py --phases 1,2,15     # the MoE and MLA families
 
 Phases:
 
@@ -120,7 +121,9 @@ Phases:
               restore; on phase 14 flash_attention on granite-3-2b's
               ``Trainer.run`` at full depth and at 2 layers (the straight,
               the killed and the resumed job), and wkv6 and wkv6_backward
-              on rwkv6-7b's.
+              on rwkv6-7b's; on phase 15 flash_attention on qwen3-moe's
+              serve and ``Trainer.run``, on minicpm3-4b's naive serve and
+              its ``Trainer.run``, and none on its absorbed serve.
 9. store    — ``GraphStore`` + ``IncrementalIndex`` on the card: the
               join-heavy graph with ``random_update_batches(.., 8, 4096,
               delete_frac=0.35, seed=1)``, and the scale graph seeded as a
@@ -292,6 +295,38 @@ Phases:
               and bfloat16; its device time beside its plain version's, the
               autograd VJP of the plain recurrence (the backward before the
               kernel) and its bound.
+
+15. families — the MoE and MLA families at full width, float32, seeded
+              params from ``init_params``, every earlier phase's device
+              memory freed first: (a) qwen3-moe-30b-a3b at 4 of its 48
+              layers serves phase 10's 16 requests through ``ServeEngine``
+              (exactly 4 flash_attention launches a decode step); its
+              tokens equal the ``attn_impl="ref"`` run's on the same
+              params, or, on a differing token, both serves run again with
+              every router decision logged and the phase prints the first
+              differing expert set and, for each differing token, its top-2
+              logit margin and the earliest differing decision in its slot,
+              failing unless that decision's margin is below 1e-5 (a tie at
+              float error); teacher-forced logits within 2e-3; tokens/s,
+              median step, one profiled step and peak memory; (b) 2 of its
+              layers trained, B 4 x S 512, remat "full", 5 steps: finite
+              losses, each step's ``moe_dropped``, exactly 4 flash launches
+              a step, median step, tokens/s, peak memory, then loss and
+              grads against ``attn_impl="ref"`` (loss within 1e-5 relative,
+              each grad leaf within 1e-3 of its largest plain value; the
+              router decisions that differ between the two runs counted,
+              each to be a tie below 1e-5 if any do, when the bounds are
+              not held); (c) minicpm3-4b at 8 of its 62 layers serves the
+              16 requests with its absorbed decode (no flash launch) and
+              with the naive one on the kernel (D 96, padded to 128) and on
+              the plain version, whose tokens must be equal; teacher-forced
+              logits, absorbed against naive on the kernel, within 2e-3;
+              (d) minicpm3-4b at 4 layers trained as (b), 8 flash launches
+              a step; (e) flash_attention at qwen3-moe's decode (B 8, 32/4
+              heads, D 128) and training prefill (4, 32/4, 512, 128) and at
+              minicpm3's training prefill and naive decode (40 heads, D 96,
+              V 64 padded), each against its plain version and timed as in
+              phase 3 (SDPA on the unpadded tensors as the library call).
 
 Any failure propagates: the script exits non-zero and prints no result.
 The last line of a passing run is
@@ -2799,9 +2834,11 @@ def top2_margins(logits, vocab):
     return (top[:, 0] - top[:, 1]).cpu()
 
 
-def serve_once(lm, params, cfg, record_margins=False):
+def serve_once(lm, params, cfg, record_margins=False, token_steps=None):
     """Phase 10's requests through ``ServeEngine``: (done, wall seconds,
-    per-decode device ms from CUDA events, {(rid, j): top-2 margin})."""
+    per-decode device ms from CUDA events, {(rid, j): top-2 margin}).
+    ``token_steps``, if given, is filled with {(rid, j): (decode call,
+    slot)} for every token served."""
     eng = lm.ServeEngine(params, cfg, lm.ServeConfig(**SERVE_CONFIG))
     for prompt, max_new in serve_requests(cfg.vocab):
         eng.submit(prompt, max_new)
@@ -2824,11 +2861,15 @@ def serve_once(lm, params, cfg, record_margins=False):
         out = tick()
         for r in reqs:
             if len(r.out) > before[r.rid]:
-                margins[(r.rid, len(r.out) - 1)] = float(last["m"][r.slot])
+                j = len(r.out) - 1
+                if record_margins:
+                    margins[(r.rid, j)] = float(last["m"][r.slot])
+                if token_steps is not None:
+                    token_steps[(r.rid, j)] = (len(events) - 1, r.slot)
         return out
 
     eng._decode = timed_decode
-    if record_margins:
+    if record_margins or token_steps is not None:
         eng.tick = margin_tick
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2865,6 +2906,37 @@ def teacher_forced(lm, params, cfg, toks, wkv=None):
     return torch.cat(steps, 1)[..., : cfg.vocab]
 
 
+def differing_tokens(arch, done, done_ref):
+    """The first token of each request that differs between two serves of
+    the same schedule: (rid, j, token, plain token)."""
+    if [r for r, _ in done] != [r for r, _ in done_ref]:
+        raise AssertionError(f"{arch}: finish order {[r for r, _ in done]} != "
+                             f"{[r for r, _ in done_ref]}")
+    want = dict(done_ref)
+    return [next(((rid, j, a, b) for j, (a, b) in enumerate(zip(ts, want[rid]))
+                  if a != b), (rid, min(len(ts), len(want[rid])), None, None))
+            for rid, ts in done if list(ts) != list(want[rid])]
+
+
+def teacher_tokens(vocab: int) -> np.ndarray:
+    """The first 8 prompt tokens of the first max_batch requests."""
+    reqs = serve_requests(vocab)[: SERVE_CONFIG["max_batch"]]
+    return np.stack([p[:8] for p, _ in reqs]).astype(np.int32)
+
+
+def teacher_forced_check(lm, params, cfg, other, toks, what, tag=""):
+    """Teacher-forced logits of ``cfg`` and ``other`` on the same params:
+    finite, and within 2e-3 of each other; returns both."""
+    out = [teacher_forced(lm, params, c, toks) for c in (cfg, other)]
+    err = float((out[0] - out[1]).abs().max())
+    log(f"  {tag}teacher-forced decode logits, {what}: max abs diff {err:.3g} "
+        f"over {tuple(out[0].shape)} (limit 2e-3)")
+    if err > 2e-3 or not torch.isfinite(out[0]).all():
+        raise AssertionError(f"{cfg.name}: {what}: decode logits differ by "
+                             f"{err}")
+    return out
+
+
 def phase_serve(main, lm, arch: str):
     """``ServeEngine`` at full width on ``arch`` with the kernels (the main
     path), then on its plain versions with the same params; the tokens must
@@ -2895,30 +2967,19 @@ def phase_serve(main, lm, arch: str):
     log(f"  plain: {sum(len(t) for _, t in done_ref)} tokens in {wall_ref:.3f}"
         f" s; median decode step {float(np.median(step_ref)):.4f} ms; "
         f"smallest top-2 logit margin {min(margins.values()):.4g}")
-    got, want = dict(done), dict(done_ref)
-    if [r for r, _ in done] != [r for r, _ in done_ref]:
-        raise AssertionError(f"{arch}: finish order {[r for r, _ in done]} != "
-                             f"{[r for r, _ in done_ref]}")
-    for rid in want:
-        for j, (a, b) in enumerate(zip(got[rid], want[rid])):
-            if a != b:
-                raise AssertionError(
-                    f"{arch}: request {rid} token {j}: kernels {a}, plain {b}; "
-                    f"the plain run's top-2 logit margin there "
-                    f"{margins[(rid, j)]:.4g}")
-    if any(not (0 <= t < cfg.vocab) for ts in got.values() for t in ts):
+    bad = differing_tokens(arch, done, done_ref)
+    if bad:
+        rid, j, a, b = bad[0]
+        raise AssertionError(
+            f"{arch}: request {rid} token {j}: kernels {a}, plain {b}; "
+            f"the plain run's top-2 logit margin there {margins[(rid, j)]:.4g}")
+    if any(not (0 <= t < cfg.vocab) for _, ts in done for t in ts):
         raise AssertionError(f"{arch}: a token outside the vocab")
     log(f"  tokens equal the plain run's for all {len(done)} requests")
 
-    # teacher-forced decode: kernels against plain versions, same params
-    reqs = serve_requests(cfg.vocab)[: SERVE_CONFIG["max_batch"]]
-    toks = np.stack([p[:8] for p, _ in reqs]).astype(np.int32)
-    out = [teacher_forced(lm, params, c, toks) for c in (cfg, cfg_ref)]
-    err = float((out[0] - out[1]).abs().max())
-    log(f"  teacher-forced decode logits, kernels vs plain: max abs diff "
-        f"{err:.3g} over {tuple(out[0].shape)}")
-    if err > 2e-3 or not torch.isfinite(out[0]).all():
-        raise AssertionError(f"{arch}: decode logits differ by {err}")
+    toks = teacher_tokens(cfg.vocab)
+    out = teacher_forced_check(lm, params, cfg, cfg_ref, toks,
+                               "kernels vs plain")
     if cfg.family == "rwkv":
         reordered = teacher_forced(lm, params, cfg_ref, toks, wkv6_einsum)
         log(f"  the same with only the WKV output sum reordered (einsum "
@@ -3347,7 +3408,8 @@ def phase_mesh(main, core, graphs, search, scale: float):
 # ---------------------------------------------------------------------------
 
 # granite-3-2b's (a), (b) and (d) batches, and rwkv6-7b's (c) and (d)
-TRAIN_SHAPE = {"granite-3-2b": (4, 512), "rwkv6-7b": (4, 256)}
+TRAIN_SHAPE = {"granite-3-2b": (4, 512), "rwkv6-7b": (4, 256),
+               "qwen3-moe-30b-a3b": (4, 512), "minicpm3-4b": (4, 512)}
 TRAIN_FULL_STEPS = 8      # (a): granite at full depth
 TRAIN_RESUME_STEPS = 30   # (b): 2 layers, a commit at step 15, keep 1
 TRAIN_RWKV_STEPS = 5      # (c): rwkv6-7b, 2 layers
@@ -3375,16 +3437,17 @@ def state_gb(params) -> float:
     return 16 * sum(p.numel() for p in params.parameters()) / 1e9
 
 
-def train_job(main, tm, cfg, path, shape, tcfg, *, seed=0, on_metrics=None):
+def train_job(main, tm, cfg, path, shape, tcfg, *, seed=0, on_metrics=None,
+              phase=14):
     """One ``Trainer.run`` at ``shape`` (B, S) on the card as an entry-point
-    call of phase 14's ``path``; returns (params, opt_state, history)."""
+    call of ``phase``'s ``path``; returns (params, opt_state, history)."""
     b, s = shape
     trainer = tm.Trainer(cfg, tm.TrainerConfig(**tcfg), global_batch=b,
                          seq_len=s, seed=seed, device="cuda")
     gen = torch.Generator("cuda").manual_seed(seed)
     try:
         return main.run(path, lambda: trainer.run(
-            generator=gen, on_metrics=on_metrics), phase=14)
+            generator=gen, on_metrics=on_metrics), phase=phase)
     finally:
         if trainer.ckpt is not None:
             trainer.ckpt.wait()
@@ -3580,32 +3643,51 @@ def loss_grads(tm, cfg, params, batch):
     return float(loss.detach()), dict(zip(named, grads))
 
 
-def train_grads(tm, arch: str, loss_rtol: float, grad_tol: float):
-    """(d): loss and grads of 2 full-width layers on the kernels against the
-    same on the plain versions (``attn_impl="ref"``), same params and
-    batch; each grad leaf within ``grad_tol`` x its largest plain value."""
-    cfg = dataclasses.replace(tm.get_config(arch), n_layers=2)
+def train_grads(tm, arch: str, loss_rtol: float, grad_tol: float,
+                n_layers: int = 2, tag: str = "(d)"):
+    """Loss and grads of ``n_layers`` full-width layers on the kernels
+    against the same on the plain versions (``attn_impl="ref"``), same
+    params and batch; each grad leaf within ``grad_tol`` x its largest
+    plain value.  An MoE model's router decisions are compared too: where
+    some differ between the runs, the bounds are not held, and each one's
+    margin must be a tie at float error (below ``TIE_MARGIN``)."""
+    cfg = dataclasses.replace(tm.get_config(arch), n_layers=n_layers)
     b, s = TRAIN_SHAPE[arch]
     params = tm.M.init_params(cfg, torch.Generator("cuda").manual_seed(4),
                               "cuda")
     params.requires_grad_(True)
     batch = tm.SyntheticLMDataset(cfg.vocab, s, b, seed=4).batch_at(0)
-    loss_k, grads_k = loss_grads(tm, cfg, params, batch)
-    loss_p, grads_p = loss_grads(tm, dataclasses.replace(cfg, attn_impl="ref"),
-                                 params, batch)
+    with RouterLog(tm.M.L) as routes_k:
+        loss_k, grads_k = loss_grads(tm, cfg, params, batch)
+    with RouterLog(tm.M.L) as routes_p:
+        loss_p, grads_p = loss_grads(
+            tm, dataclasses.replace(cfg, attn_impl="ref"), params, batch)
     rel = abs(loss_k - loss_p) / abs(loss_p)
     errs = {name: float((g - grads_p[name]).abs().max())
             / max(float(grads_p[name].abs().max()), 1e-30)
             for name, g in grads_k.items()}
     worst_name = max(errs, key=errs.get)
     worst = errs[worst_name]
-    log(f"  (d) {arch} x2 layers: loss kernels {loss_k:.7f}, plain "
+    log(f"  {tag} {arch} x{n_layers} layers: loss kernels {loss_k:.7f}, plain "
         f"{loss_p:.7f} (rel diff {rel:.3g}, limit {loss_rtol:g}); largest grad "
         f"diff {worst:.3g} of the leaf's max at {worst_name} (limit "
         f"{grad_tol:g})")
-    if not rel <= loss_rtol or not worst <= grad_tol:
-        raise AssertionError(f"(d) {arch}: kernel path differs from the plain "
-                             f"path (loss {rel}, grads {worst})")
+    flips = route_diffs(routes_k, routes_p)
+    if cfg.moe is not None:
+        log(f"  {tag} {arch}: {len(flips)} of {routes_p.decisions()} router "
+            f"decisions differ between the runs"
+            + (f"; their margins {min(f[2] for f in flips):.3g} to "
+               f"{max(f[2] for f in flips):.3g}" if flips else ""))
+    if flips:
+        if max(f[2] for f in flips) >= TIE_MARGIN:
+            raise AssertionError(f"{tag} {arch}: a router decision differs at "
+                                 f"a margin past {TIE_MARGIN}")
+        log(f"  {tag} {arch}: every differing decision is a tie at float "
+            f"error (margin below {TIE_MARGIN:g}); the loss and grad bounds "
+            f"are not held")
+    elif not rel <= loss_rtol or not worst <= grad_tol:
+        raise AssertionError(f"{tag} {arch}: kernel path differs from the "
+                             f"plain path (loss {rel}, grads {worst})")
     del params, grads_k, grads_p
     torch.cuda.empty_cache()
 
@@ -3734,18 +3816,25 @@ def check_wkv_backward(wkv_ops, wkv_ref, name, args, cot, tol):
     return err
 
 
-def phase_train(main, fa_ops, fa_ref, wkv_ops, wkv_ref, stores):
-    """Phase 14: training on the card (a)-(e)."""
+def free_earlier_phases(stores):
+    """Drop the device memory earlier phases hold: the stores phase 9 left
+    for phase 11 and the cached scale graph, store and queries."""
     import gc
 
-    tm = train_modules()
-    # free what earlier phases hold: (a) needs about 45 GB
     stores.clear()
     scale_store.cache_clear()
     scale_graph.cache_clear()
     scale_queries.cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def phase_train(main, fa_ops, fa_ref, wkv_ops, wkv_ref, stores):
+    """Phase 14: training on the card (a)-(e)."""
+    import gc
+
+    tm = train_modules()
+    free_earlier_phases(stores)  # (a) needs about 45 GB
     held = torch.cuda.memory_allocated()
     log(f"[14 train] device memory held at the start: {held / 2**30:.3f} GiB")
     parts, steps = {}, {}
@@ -3775,9 +3864,348 @@ def phase_train(main, fa_ops, fa_ref, wkv_ops, wkv_ref, stores):
     return err, tim
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the MoE and MLA families at full width
+# ---------------------------------------------------------------------------
+
+# depth cut to fit the phase's budget (widths stay the published ones):
+# qwen3-moe-30b-a3b 4 of 48 layers served, 2 trained; minicpm3-4b 8 of 62
+# served, 4 trained
+FAMILY_SERVE_LAYERS = {"qwen3-moe-30b-a3b": 4, "minicpm3-4b": 8}
+FAMILY_TRAIN_LAYERS = {"qwen3-moe-30b-a3b": 2, "minicpm3-4b": 4}
+FAMILY_TRAIN_STEPS = 5
+# a router decision whose k-th and (k+1)-th selection scores lie closer
+# than this is a tie at float error: attention's rounding may flip it
+TIE_MARGIN = 1e-5
+
+
+class RouterLog:
+    """Every MoE routing decision made while active: ``L._top_k`` wrapped
+    to keep, for each call, the chosen experts of every token (sorted) and
+    the decision's margin, the k-th selection score less the (k+1)-th."""
+
+    def __init__(self, layers):
+        self.layers, self.calls = layers, []
+
+    def __enter__(self):
+        plain = self.plain = self.layers._top_k
+
+        def recording(scores, k):
+            idx = plain(scores, k)
+            with torch.no_grad():
+                top = scores.topk(k + 1, dim=-1).values
+                self.calls.append((idx.sort(-1).values,
+                                   top[..., k - 1] - top[..., k]))
+            return idx
+
+        self.layers._top_k = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.layers._top_k = self.plain
+
+    def decisions(self) -> int:
+        return sum(margin.numel() for _, margin in self.calls)
+
+
+def route_diffs(a: RouterLog, b: RouterLog):
+    """The decisions whose expert sets differ between two logs of one
+    schedule: (call, token, margin in ``b``, margin in ``a``), in order."""
+    if len(a.calls) != len(b.calls):
+        raise AssertionError(f"{len(a.calls)} and {len(b.calls)} router calls")
+    out = []
+    for c, ((ia, ma), (ib, mb)) in enumerate(zip(a.calls, b.calls)):
+        for t in (ia != ib).any(-1).reshape(-1).nonzero().flatten().tolist():
+            out.append((c, t, float(mb.reshape(-1)[t]), float(ma.reshape(-1)[t])))
+    return out
+
+
+def explain_flips(lm, params, cfg, cfg_ref, bad, margins):
+    """Phase 15 (a)'s report on differing tokens: both serves again with
+    every router decision logged.  Prints the first decision whose expert
+    set differs and, for each differing token, its top-2 logit margin and
+    the earliest differing decision in its slot at or before it.  Fails
+    unless each such token has one whose margin is below ``TIE_MARGIN``."""
+    logs, steps = [], []
+    for c in (cfg, cfg_ref):
+        st = {}
+        with RouterLog(lm.L) as rl:
+            serve_once(lm, params, c, token_steps=st)
+        logs.append(rl)
+        steps.append(st)
+    n = cfg.n_layers
+    flips = route_diffs(*logs)
+    if flips:
+        c, slot, m_p, m_k = flips[0]
+        log(f"  first differing expert set: layer {c % n}, decode call "
+            f"{c // n}, slot {slot}; margin {m_p:.3g} plain, {m_k:.3g} kernels "
+            f"({len(flips)} of {logs[1].decisions()} decisions differ)")
+    for rid, j, _, _ in bad:
+        step, slot = steps[1][(rid, j)]
+        before = [f for f in flips if f[0] // n <= step and f[1] == slot]
+        log(f"  request {rid} token {j} (decode call {step}, slot {slot}): "
+            f"the plain run's top-2 logit margin {margins[(rid, j)]:.4g}; "
+            + (f"earliest differing expert set in its slot: layer "
+               f"{before[0][0] % n}, decode call {before[0][0] // n}, margin "
+               f"{before[0][2]:.3g}" if before
+               else "no expert choice differed at or before it"))
+        if not before or before[0][2] >= TIE_MARGIN:
+            raise AssertionError(f"{cfg.name}: request {rid} token {j} differs "
+                                 f"with no router tie (margin below "
+                                 f"{TIE_MARGIN}) at or before it")
+    log(f"  every differing token follows a router tie at float error")
+
+
+def family_params(lm, cfg, tag):
+    t0 = time.perf_counter()
+    params = lm.M.init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    log(f"[15 families] {tag} {cfg.name} at {cfg.n_layers} of its layers: "
+        f"{n:,} params ({n * 4 / 1e9:.2f} GB float32) drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def family_serve(main, lm, params, cfg, path, tag):
+    """One serve of phase 10's requests as ``path``'s entry-point call; logs
+    tokens/s and the median step, and checks the flash launches a step."""
+    done, wall, step_ms, _ = main.run(
+        path, lambda: serve_once(lm, params, cfg), phase=15)
+    n_tok = sum(len(t) for _, t in done)
+    launches = main.counts[(15, path)]["flash_attention"]
+    want = 0 if cfg.mla is not None and cfg.mla_absorb else cfg.n_layers
+    log(f"  {tag} {path}: {len(done)} requests, {n_tok} tokens in {wall:.3f} s "
+        f"= {n_tok / wall:.2f} tokens/s; {len(step_ms)} decode steps, median "
+        f"{float(np.median(step_ms)):.4f} ms (CUDA events; min "
+        f"{min(step_ms):.4f}, max {max(step_ms):.4f}); flash_attention "
+        f"{launches / len(step_ms):g} launches a step")
+    if launches != want * len(step_ms):
+        raise AssertionError(f"{path}: {launches} flash_attention launches in "
+                             f"{len(step_ms)} decode steps, expected {want} a "
+                             f"step")
+    return done
+
+
+def serve_moe(main, lm):
+    """(a): qwen3-moe-30b-a3b serving, kernels against plain."""
+    arch = "qwen3-moe-30b-a3b"
+    cfg = dataclasses.replace(lm.get_config(arch),
+                              n_layers=FAMILY_SERVE_LAYERS[arch])
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = family_params(lm, cfg, "(a)")
+    done = family_serve(main, lm, params, cfg, arch, "(a)")
+    cfg_ref = dataclasses.replace(cfg, attn_impl="ref")
+    done_ref, wall_ref, step_ref, margins = serve_once(lm, params, cfg_ref,
+                                                       record_margins=True)
+    log(f"  (a) plain: {sum(len(t) for _, t in done_ref)} tokens in "
+        f"{wall_ref:.3f} s; median decode step {float(np.median(step_ref)):.4f}"
+        f" ms; smallest top-2 logit margin {min(margins.values()):.4g}")
+    bad = differing_tokens(arch, done, done_ref)
+    if bad:
+        log(f"  (a) {len(bad)} requests differ from the plain run")
+        explain_flips(lm, params, cfg, cfg_ref, bad, margins)
+    else:
+        log(f"  (a) tokens equal the plain run's for all {len(done)} requests")
+    toks = teacher_tokens(cfg.vocab)
+    out = teacher_forced_check(lm, params, cfg, cfg_ref, toks,
+                               "kernels vs plain", "(a) ")
+    cache = lm.M.init_cache(cfg, toks.shape[0], SERVE_CONFIG["max_len"],
+                            device="cuda")
+    lm.M.decode_step(params, cfg, cache, toks[:, :1], 0)
+    profile(f"(a) {arch} decode_step (B=8, pos 1)",
+            lambda: lm.M.decode_step(params, cfg, cache, toks[:, 1:2], 1),
+            top=10)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  (a) peak device memory {(peak - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held")
+    del params, cache, out
+    torch.cuda.empty_cache()
+
+
+def serve_mla(main, lm):
+    """(c): minicpm3-4b serving: the absorbed decode (the config's), then
+    the naive one on the kernel and on the plain version."""
+    arch = "minicpm3-4b"
+    cfg = dataclasses.replace(lm.get_config(arch),
+                              n_layers=FAMILY_SERVE_LAYERS[arch])
+    naive = dataclasses.replace(cfg, mla_absorb=False)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = family_params(lm, cfg, "(c)")
+    done_abs = family_serve(main, lm, params, cfg, arch, "(c)")
+    log(f"  (c) {arch}: the absorbed decode launches no flash_attention (its "
+        f"latent-space attention is plain torch, as in the reference)")
+    done = family_serve(main, lm, params, naive, f"{arch}_naive", "(c)")
+    naive_ref = dataclasses.replace(naive, attn_impl="ref")
+    done_ref, wall_ref, step_ref, margins = serve_once(lm, params, naive_ref,
+                                                       record_margins=True)
+    log(f"  (c) naive, plain: {sum(len(t) for _, t in done_ref)} tokens in "
+        f"{wall_ref:.3f} s; median decode step {float(np.median(step_ref)):.4f}"
+        f" ms; smallest top-2 logit margin {min(margins.values()):.4g}")
+    bad = differing_tokens(arch, done, done_ref)
+    if bad:
+        rid, j, a, b = bad[0]
+        raise AssertionError(f"(c) {arch} naive: request {rid} token {j}: "
+                             f"kernel {a}, plain {b}; the plain run's top-2 "
+                             f"logit margin there {margins[(rid, j)]:.4g}")
+    same = sum(a == b for (_, x), (_, y) in zip(done_abs, done)
+               for a, b in zip(x, y))
+    log(f"  (c) naive tokens equal on kernel and plain for all {len(done)} "
+        f"requests; the absorbed serve agrees with them on {same} of "
+        f"{sum(len(t) for _, t in done)} tokens")
+    out = teacher_forced_check(lm, params, cfg, naive,
+                               teacher_tokens(cfg.vocab),
+                               "absorbed vs naive on the kernel", "(c) ")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  (c) peak device memory {(peak - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held")
+    del params, out
+    torch.cuda.empty_cache()
+
+
+def train_family(main, tm, arch, tag, held):
+    """(b) / (d): ``arch`` at full width and ``FAMILY_TRAIN_LAYERS`` deep,
+    5 steps: finite losses, each step's ``moe_dropped``, two flash launches
+    a layer and step (forward and remat recompute), then the kernel path's
+    loss and grads against the plain path's."""
+    cfg = dataclasses.replace(tm.get_config(arch),
+                              n_layers=FAMILY_TRAIN_LAYERS[arch])
+    shape = TRAIN_SHAPE[arch]
+    log(f"[15 families] {tag} {cfg.name} at {cfg.n_layers} layers: d "
+        f"{cfg.d_model}, remat {cfg.remat!r}, B x S {shape}, float32")
+    torch.cuda.reset_peak_memory_stats()
+    dropped, plain = [], tm.M.loss_fn
+
+    def recording(*args, **kw):
+        loss, metrics = plain(*args, **kw)
+        dropped.append(metrics["moe_dropped"])
+        return loss, metrics
+
+    tm.M.loss_fn = recording
+    try:
+        params, _, hist = train_job(
+            main, tm, cfg, f"{arch}_train", shape,
+            dict(steps=FAMILY_TRAIN_STEPS, lr=3e-4, warmup=1, log_every=1),
+            phase=15)
+    finally:
+        tm.M.loss_fn = plain
+    log(f"  {sum(p.numel() for p in params.parameters()):,} params, "
+        f"{state_gb(params):.2f} GB of params, grads, m and v")
+    if cfg.moe is not None:
+        log(f"  {tag} moe_dropped each step: "
+            f"{[round(float(x), 5) for x in dropped]}")
+    med, per_step = report_steps(tag, shape, hist,
+                                 main.counts[(15, f"{arch}_train")],
+                                 "flash_attention", 2, held)
+    if per_step != 2 * cfg.n_layers:
+        raise AssertionError(f"{tag}: {per_step} flash_attention launches a "
+                             f"step, expected {2 * cfg.n_layers} (forward and "
+                             f"remat recompute)")
+    del params
+    torch.cuda.empty_cache()
+    train_grads(tm, arch, 1e-5, 1e-3, n_layers=cfg.n_layers, tag=tag)
+    return med
+
+
+def mla_inputs(gen, b, h, sq, skv):
+    """minicpm3-4b's naive attention call: q (b, h, sq, 96), k from the
+    per-head nope key (64) and the rope key (32) broadcast over the heads,
+    V 64 padded to 96; also the unpadded V for SDPA."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    q = randn(b, h, sq, 96)
+    k = torch.cat([randn(b, h, skv, 64), randn(b, 1, skv, 32).expand(
+        b, h, skv, 32)], dim=-1)
+    v = randn(b, h, skv, 64)
+    return q, k, torch.nn.functional.pad(v, (0, 32)), v
+
+
+def family_kernel_times(fa_ops, fa_ref):
+    """(e): flash_attention at the four shapes this phase puts on a path,
+    checked against its plain version and timed as phase 3 times it (SDPA
+    with ``enable_gqa`` as the library call; on the unpadded tensors for
+    the D 96 rows)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    gen = torch.Generator("cuda").manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    err, tim = 0.0, {}
+    dec = dict(q_offset=93, kv_len=94)  # phase 10's longest kv_len
+    b, s = TRAIN_SHAPE["qwen3-moe-30b-a3b"]
+    cases = {
+        "flash_attention_qwen3_decode": (
+            (randn(8, 32, 1, 128), randn(8, 4, 512, 128), randn(8, 4, 512, 128)),
+            dec, "qwen3-moe decode B=8 Hq=32 Hkv=4 D=128 Skv=512 kv_len=94"),
+        "flash_attention_qwen3_train": (
+            (randn(b, 32, s, 128), randn(b, 4, s, 128), randn(b, 4, s, 128)),
+            {}, f"qwen3-moe training prefill B={b} Hq=32 Hkv=4 S={s} D=128 "
+            f"causal float32"),
+    }
+    b, s = TRAIN_SHAPE["minicpm3-4b"]
+    q, k, v, v64 = mla_inputs(gen, b, 40, s, s)
+    cases["flash_attention_mla_train"] = (
+        (q, k, v), {}, f"minicpm3 training prefill B={b} H=40 S={s} D=96 "
+        f"(128 in the kernel) causal float32", v64)
+    q, k, v, v64 = mla_inputs(gen, 8, 40, 1, 512)
+    cases["flash_attention_mla_decode"] = (
+        (q, k, v), dec, "minicpm3 naive decode B=8 H=40 D=96 (128 in the "
+        "kernel) Skv=512 kv_len=94", v64)
+    for name, (qkv, kw, shape, *unpadded) in cases.items():
+        q, k, v = qkv
+        err = max(err, check_flash(fa_ops, fa_ref, name, q, k, v, kw))
+        n = kw.get("kv_len", k.shape[2])
+        lib_v = unpadded[0] if unpadded else v
+        library = (lambda q=q, k=k, lib_v=lib_v, n=n: sdpa(
+            q, k[:, :, :n], lib_v[:, :, :n], enable_gqa=True)) if kw else (
+            lambda q=q, k=k, lib_v=lib_v: sdpa(q, k, lib_v, is_causal=True,
+                                               enable_gqa=True))
+        tim[name] = time_kernel(
+            name, lambda q=q, k=k, v=v, kw=kw: fa_ops.flash_attention(q, k, v, **kw),
+            lambda q=q, k=k, v=v, kw=kw: fa_ref.mha_plain(q, k, v, **kw),
+            flash_bound(q, k, kw), shape, library)
+        if unpadded:  # split the wrapper's pad copies from the kernel
+            wide = [torch.nn.functional.pad(x, (0, 128 - x.shape[-1]))
+                    for x in (q, k, v)]
+            ms = device_ms(lambda wide=wide, kw=kw: fa_ops.flash_attention(
+                *wide, **kw))
+            log(f"  time {name} on inputs already 128 wide (the kernel alone, "
+                f"no pad copies; its scale 1/sqrt(128)): {ms:.5f} ms on the "
+                f"device")
+            tim[name]["prepadded_ms"] = ms
+    return err, tim
+
+
+def phase_families(main, fa_ops, fa_ref, stores):
+    """Phase 15: the MoE and MLA families at full width, (a)-(e)."""
+    free_earlier_phases(stores)
+    held = torch.cuda.memory_allocated()
+    log(f"[15 families] device memory held at the start: {held / 2**30:.3f} GiB")
+    lm, tm, parts = lm_modules(), train_modules(), {}
+    for part, fn in (("a", lambda: serve_moe(main, lm)),
+                     ("b", lambda: train_family(main, tm, "qwen3-moe-30b-a3b",
+                                                "(b)", held)),
+                     ("c", lambda: serve_mla(main, lm)),
+                     ("d", lambda: train_family(main, tm, "minicpm3-4b", "(d)",
+                                                held))):
+        t0 = time.perf_counter()
+        fn()
+        parts[part] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("[15 families] (e) flash_attention at this phase's shapes")
+    err, tim = family_kernel_times(fa_ops, fa_ref)
+    parts["e"] = time.perf_counter() - t0
+    log(f"  phase 15 parts (s): { {k: round(v, 1) for k, v in parts.items()} }")
+    return err, tim
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                         help="comma-separated phase numbers to run")
     parser.add_argument("--scale", type=float, default=1.0,
                         help="common factor on the scale graph's (and the "
@@ -3858,6 +4286,15 @@ def main(argv=None) -> int:
         timings.update(tim)
         log(f"  phase 14: {time.perf_counter() - t0:.1f} s, launches "
             f"{ {path: c for (n, path), c in main.counts.items() if n == 14} }")
+    if 15 in phases:
+        main.phase = 15
+        t0 = time.perf_counter()
+        err, tim = phase_families(main, fa_ops, fa_ref, stores)
+        max_err["flash_attention"] = max(max_err.get("flash_attention", 0.0),
+                                         err)
+        timings.update(tim)
+        log(f"  phase 15: {time.perf_counter() - t0:.1f} s, launches "
+            f"{ {path: c for (n, path), c in main.counts.items() if n == 15} }")
     launches = {k: sum(c[k] for c in main.counts.values()) for k in main.read()}
     if 8 in phases:
         log(f"[8 counts] main-path launches per (phase, path): {main.counts}; "
@@ -3900,7 +4337,11 @@ def main(argv=None) -> int:
                     (13, "meshed_service_scale"): path,
                     (14, "granite-3-2b"): ("flash_attention",),
                     (14, "granite-3-2b_x2"): ("flash_attention",),
-                    (14, "rwkv6-7b"): ("wkv6", "wkv6_backward")}
+                    (14, "rwkv6-7b"): ("wkv6", "wkv6_backward"),
+                    (15, "qwen3-moe-30b-a3b"): ("flash_attention",),
+                    (15, "qwen3-moe-30b-a3b_train"): ("flash_attention",),
+                    (15, "minicpm3-4b_naive"): ("flash_attention",),
+                    (15, "minicpm3-4b_train"): ("flash_attention",)}
         for (num, entry), names in required.items():
             for name in names:
                 if num in phases and main.counts[(num, entry)][name] == 0:
@@ -3912,6 +4353,10 @@ def main(argv=None) -> int:
             if num in phases and main.counts[(num, entry)]["cni_encode"]:
                 raise AssertionError(f"phase {num}'s {entry} launched "
                                      "cni_encode")
+        # the absorbed MLA decode attends in the latent space, in torch
+        if 15 in phases and main.counts[(15, "minicpm3-4b")]["flash_attention"]:
+            raise AssertionError("phase 15's absorbed minicpm3-4b serve "
+                                 "launched flash_attention")
     if 3 in phases:
         timings["candidate_filter"] = timings["candidate_filter_exact"]
         kernels = []

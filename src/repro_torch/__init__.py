@@ -6,8 +6,9 @@ digests, filters, ILGF, k-hop refinement, search, engines, incremental
 index, planner), ``obsv`` (reports and spans), ``kernels`` (hand-written
 Hopper kernels beside their plain PyTorch versions), ``configs`` (engine
 presets and the ten model architectures), ``models`` (the LM substrate's
-dense GQA and RWKV-6 families), ``serve`` (the LM ``ServeEngine``) and
-``launch`` (its command-line launcher).
+dense GQA, MLA, MoE and RWKV-6 families), ``serve`` (the LM
+``ServeEngine``), ``train`` (its ``Trainer``) and ``launch`` (their
+command-line launchers).
 
 Entry points take ``device=None``, which means ``"cuda"``: they raise when no
 CUDA device is present, and run on the CPU only when the caller passes

@@ -1,6 +1,6 @@
 """The LM substrate of the port: configs, layers, the RWKV-6 block and
 model assembly (``init_params``, ``init_cache``, ``forward``, ``loss_fn``,
-``decode_step``) for the dense GQA and RWKV families."""
+``decode_step``) for the dense (GQA and MLA), MoE and RWKV families."""
 
 from repro_torch.models.config import ModelConfig, RWKVConfig
 from repro_torch.models.convert import (

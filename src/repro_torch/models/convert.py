@@ -22,11 +22,12 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import GQA, SwiGLU
+from repro_torch.models.layers import GQA, MLA, MoE, SwiGLU
 from repro_torch.models.model import LM, Layer, model_kind
 from repro_torch.models.ssm import RWKV6
 
 _LAYER_KEYS = {"dense": {"norm1", "norm2", "attn", "ffn"},
+               "moe": {"norm1", "norm2", "attn", "ffn"},
                "rwkv": {"norm1", "norm2", "rwkv"}}
 
 
@@ -38,8 +39,26 @@ def _module(cls, tree: dict, i: int, dev):
     return cls(**{name: _tensor(tree[name][i], dev) for name in cls.NAMES})
 
 
+def _moe(cfg: ModelConfig, tree: dict, i: int, dev) -> MoE:
+    """Layer ``i``'s MoE FFN; ``router_bias`` and the ``shared`` SwiGLU are
+    there exactly when the config asks for them."""
+    mo = cfg.moe
+    want = set(MoE.NAMES) | ({"router_bias"} if mo.router_aux_free_bias
+                             else set()) | ({"shared"} if mo.n_shared else set())
+    if set(tree) != want:
+        raise ValueError(f"{cfg.name}: expected ffn keys {sorted(want)}, got "
+                         f"{sorted(tree)}")
+    return MoE(**{name: _tensor(tree[name][i], dev) for name in MoE.NAMES},
+               router_bias=(_tensor(tree["router_bias"][i], dev)
+                            if mo.router_aux_free_bias else None),
+               shared=(_module(SwiGLU, tree["shared"], i, dev)
+                       if mo.n_shared else None))
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> LM:
-    """The reference's ``init_params`` tree -> the port's ``LM``."""
+    """The reference's ``init_params`` tree -> the port's ``LM`` (a moe
+    layer's ``ffn`` holds the nested ``shared`` tree and the optional
+    ``router_bias``)."""
     kind = model_kind(cfg)
     dev = resolve_device(device)
     top = {"embed", "layers", "final_norm"} | (
@@ -55,8 +74,11 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> LM:
         if kind == "rwkv":
             layers.append(Layer(*norms, rwkv=_module(RWKV6, lt["rwkv"], i, dev)))
         else:
-            layers.append(Layer(*norms, attn=_module(GQA, lt["attn"], i, dev),
-                                ffn=_module(SwiGLU, lt["ffn"], i, dev)))
+            attn = _module(MLA if cfg.mla is not None else GQA, lt["attn"], i,
+                           dev)
+            ffn = (_moe(cfg, lt["ffn"], i, dev) if kind == "moe"
+                   else _module(SwiGLU, lt["ffn"], i, dev))
+            layers.append(Layer(*norms, attn=attn, ffn=ffn))
     return LM(_tensor(tree["embed"], dev), layers,
               _tensor(tree["final_norm"], dev),
               None if cfg.tie_embeddings else _tensor(tree["unembed"], dev))
@@ -64,7 +86,8 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> LM:
 
 def cache_from_numpy(tree, device=None):
     """The reference's ``init_cache`` tree (or one a decode returned) -> the
-    port's cache: the same nested dict, each leaf a tensor."""
+    port's cache: the same nested dict (GQA's k/v, MLA's ckv/k_rope or
+    RWKV's states), each leaf a tensor."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {name: cache_from_numpy(t, dev) for name, t in tree.items()}
@@ -133,10 +156,20 @@ def state_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
 
 def _layer_names(cfg: ModelConfig) -> list[tuple[str, ...]]:
     """One layer's parameter paths in ``named_parameters`` order."""
-    if model_kind(cfg) == "rwkv":
-        return [("norm1",), ("norm2",)] + [("rwkv", n) for n in RWKV6.NAMES]
-    return ([("norm1",), ("norm2",)] + [("attn", n) for n in GQA.NAMES]
-            + [("ffn", n) for n in SwiGLU.NAMES])
+    kind = model_kind(cfg)
+    norms = [("norm1",), ("norm2",)]
+    if kind == "rwkv":
+        return norms + [("rwkv", n) for n in RWKV6.NAMES]
+    attn = MLA.NAMES if cfg.mla is not None else GQA.NAMES
+    names = norms + [("attn", n) for n in attn]
+    if kind != "moe":
+        return names + [("ffn", n) for n in SwiGLU.NAMES]
+    names += [("ffn", n) for n in MoE.NAMES]
+    if cfg.moe.router_aux_free_bias:
+        names.append(("ffn", "router_bias"))
+    if cfg.moe.n_shared:
+        names += [("ffn", "shared", n) for n in SwiGLU.NAMES]
+    return names
 
 
 def params_to_numpy(cfg: ModelConfig, lm: LM) -> dict:

@@ -1,5 +1,5 @@
 """Model layers of the port: init helpers, norms, RoPE, attention maths, the
-GQA attention layer and the SwiGLU MLP.
+GQA and MLA attention layers, the SwiGLU MLP and the MoE FFN.
 
 Weights keep the reference's layouts (``wq`` (d, h, hd), ``wo`` (h, hd, d),
 ``w_gate`` (d, d_ff), ...), so a reference param tree carries across
@@ -16,6 +16,11 @@ Attention maths (``attention_math``), by the config's ``attn_impl``:
   * ``ref``               — the plain version on any device (tests);
   * ``xla_flash``         — the reference's XLA-only ``lax.scan``
     formulation; the port raises ``ValueError``.
+
+MLA's naive path and its prefill go through ``attention_math`` (the head
+dim is qk_nope + qk_rope, V padded to it); its absorbed decode and the
+MoE dispatch are plain torch, as they are plain ``jnp`` in the reference,
+which has no Pallas kernel for either.
 """
 
 from __future__ import annotations
@@ -183,6 +188,149 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int,
 
 
 # ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V3 / MiniCPM3)
+# ---------------------------------------------------------------------------
+
+
+class MLA(ParamModule):
+    NAMES = ("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_kr", "w_uk",
+             "w_uv", "wo")
+
+
+def mla_init(generator: torch.Generator, cfg: ModelConfig,
+             dtype=torch.float32) -> MLA:
+    """Head dims come from ``cfg.mla`` alone, never ``cfg.head_dim``."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dev = generator.device
+    return MLA(
+        w_dq=dense_init(generator, (d, m.q_lora_rank), 0, dtype),
+        q_norm=zeros_init((m.q_lora_rank,), dtype, dev, 1.0),
+        w_uq=dense_init(generator, (m.q_lora_rank, h, qk), 0, dtype),
+        w_dkv=dense_init(generator, (d, m.kv_lora_rank), 0, dtype),
+        kv_norm=zeros_init((m.kv_lora_rank,), dtype, dev, 1.0),
+        w_kr=dense_init(generator, (d, m.qk_rope_head_dim), 0, dtype),
+        w_uk=dense_init(generator, (m.kv_lora_rank, h, m.qk_nope_head_dim), 0,
+                        dtype),
+        w_uv=dense_init(generator, (m.kv_lora_rank, h, m.v_head_dim), 0, dtype),
+        wo=dense_init(generator, (h, m.v_head_dim, d), None, dtype)
+        / math.sqrt(h * m.v_head_dim),
+    )
+
+
+def mla_apply(p: MLA, x: torch.Tensor, cfg: ModelConfig, *, positions=None,
+              cache: Optional[dict] = None, cache_pos: Optional[int] = None,
+              causal: bool = True, impl: str = "ref"):
+    """x (B, S, d) -> (y (B, S, d), cache).  With a cache (decode), this
+    step's latent ``ckv`` and shared rope key are written into the
+    compressed cache ``{"ckv": (B, S_max, r), "k_rope": (B, S_max, rope)}``
+    in place at ``cache_pos`` (the start clamped as ``gqa_apply`` clamps
+    it).  ``cfg.mla_absorb`` decodes in the latent space
+    (``_mla_absorbed_decode``); otherwise the cached latents are expanded
+    to per-head K and V, the rope key is broadcast over the heads and
+    concatenated, V is padded to the QK width and one ``attention_math``
+    call serves them."""
+    m = cfg.mla
+    b, sq, d = x.shape
+    nope = m.qk_nope_head_dim
+    if positions is None:
+        positions = torch.arange(sq, device=x.device)
+    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p.w_dq), p.q_norm,
+                  cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bhsk", cq, p.w_uq)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    ckv = rms_norm(torch.einsum("bsd,dr->bsr", x, p.w_dkv), p.kv_norm,
+                   cfg.norm_eps)
+    k_rope = rope(torch.einsum("bsd,dk->bsk", x, p.w_kr)[:, None], positions,
+                  cfg.rope_theta)  # (B, 1, S, rope)
+
+    if cache is not None:
+        # compressed cache: latent + shared rope key (the MLA memory win)
+        cc, cr = cache["ckv"], cache["k_rope"]
+        start = min(max(cache_pos, 0), cc.shape[1] - sq)
+        cc[:, start:start + sq] = ckv.to(cc.dtype)
+        cr[:, start:start + sq] = k_rope[:, 0].to(cr.dtype)
+        if cfg.mla_absorb:
+            return _mla_absorbed_decode(p, cfg, q_nope, q_rope, cc, cr,
+                                        cache_pos + sq), cache
+        ckv_all, k_rope_all = cc, cr[:, None]
+        kv_len, q_offset = cache_pos + sq, cache_pos
+    else:
+        ckv_all, k_rope_all = ckv, k_rope
+        kv_len, q_offset = None, 0
+
+    k_nope = torch.einsum("bsr,rhk->bhsk", ckv_all, p.w_uk)
+    v = torch.einsum("bsr,rhk->bhsk", ckv_all, p.w_uv)
+    skv = k_nope.shape[2]
+    k_full = torch.cat([k_nope, k_rope_all.expand(
+        b, cfg.n_heads, skv, m.qk_rope_head_dim)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    # pad V's head dim up to the QK dim so one attention call serves both
+    v_pad = F.pad(v, (0, q_full.shape[-1] - m.v_head_dim))
+    out = attention_math(q_full, k_full, v_pad, impl, causal=causal,
+                         window=cfg.window, q_offset=q_offset,
+                         kv_len=kv_len)[..., : m.v_head_dim]
+    return torch.einsum("bhsk,hkd->bsd", out, p.wo), cache
+
+
+def _mla_absorbed_decode(p: MLA, cfg: ModelConfig, q_nope, q_rope,
+                         ckv_cache, k_rope_cache, kv_len: int) -> torch.Tensor:
+    """Absorbed MLA decode: attention runs in the latent space.
+
+    scores_h(s) = (W_uk_h^T q_nope_h) . ckv_s + q_rope_h . k_rope_s, i.e.
+    MQA with head-specific queries against one shared latent stream; the
+    value is the latent itself, expanded through W_uv once after the
+    weighted sum.  The two score terms are computed against the two cache
+    tensors directly, an online softmax over blocks of ``min(1024, S_max)``
+    keys (the reference's scan), so the cache is never concatenated; a
+    short last block is padded with zero keys, as the reference pads, and
+    only keys at or past ``kv_len`` are masked."""
+    m = cfg.mla
+    b, h, sq, _ = q_nope.shape
+    r = m.kv_lora_rank
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_abs = torch.einsum("bhsk,rhk->bhsr", q_nope, p.w_uk).float()
+    q_rope32 = q_rope.float()
+    s_max = ckv_cache.shape[1]
+    bk = min(1024, s_max)
+    m_run = torch.full((b, h, sq), -1e30, dtype=torch.float32,
+                       device=q_nope.device)
+    l_run = torch.zeros((b, h, sq), dtype=torch.float32, device=q_nope.device)
+    acc = torch.zeros((b, h, sq, r), dtype=torch.float32, device=q_nope.device)
+    for lo in range(0, s_max, bk):
+        ckv_blk = ckv_cache[:, lo:lo + bk].float()
+        krp_blk = k_rope_cache[:, lo:lo + bk].float()
+        if ckv_blk.shape[1] < bk:
+            ckv_blk = F.pad(ckv_blk, (0, 0, 0, bk - ckv_blk.shape[1]))
+            krp_blk = F.pad(krp_blk, (0, 0, 0, bk - krp_blk.shape[1]))
+        s = (torch.einsum("bhsr,bcr->bhsc", q_abs, ckv_blk)
+             + torch.einsum("bhsk,bck->bhsc", q_rope32, krp_blk)) * scale
+        k_pos = lo + torch.arange(bk, device=s.device)
+        s = torch.where(k_pos < kv_len, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m_run, s.amax(-1))
+        alpha = torch.exp(m_run - m_new)
+        pr = torch.exp(s - m_new[..., None])
+        l_run = l_run * alpha + pr.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhsc,bcr->bhsr", pr,
+                                                    ckv_blk)
+        m_run = m_new
+    out_lat = (acc / l_run.clamp_min(1e-30)[..., None]).to(q_nope.dtype)
+    out = torch.einsum("bhsr,rhk->bhsk", out_lat, p.w_uv)  # expand once
+    return torch.einsum("bhsk,hkd->bsd", out, p.wo)
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.float32, device=None) -> dict:
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
@@ -202,3 +350,139 @@ def swiglu_init(generator: torch.Generator, d: int, d_ff: int,
 
 def swiglu_apply(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+class MoE(ParamModule):
+    """Routed experts ``w_gate``/``w_up`` (E, d, de) and ``w_down`` (E, de,
+    d) behind the router ``w_router`` (d, E); optionally ``router_bias``
+    (E,) float32, added to the scores for selection only, and a ``shared``
+    ``SwiGLU`` of width de * n_shared."""
+
+    NAMES = ("w_router", "w_gate", "w_up", "w_down")
+
+    def __init__(self, *, router_bias: Optional[torch.Tensor] = None,
+                 shared: Optional[SwiGLU] = None, **tensors: torch.Tensor):
+        super().__init__(**tensors)
+        self.register_parameter(
+            "router_bias", None if router_bias is None
+            else nn.Parameter(router_bias, requires_grad=False))
+        self.shared = shared
+
+
+def moe_init(generator: torch.Generator, cfg: ModelConfig,
+             dtype=torch.float32) -> MoE:
+    mo = cfg.moe
+    d, e, de = cfg.d_model, mo.n_experts, mo.d_expert
+    return MoE(
+        w_router=dense_init(generator, (d, e), 0, dtype),
+        router_bias=(zeros_init((e,), torch.float32, generator.device)
+                     if mo.router_aux_free_bias else None),
+        w_gate=dense_init(generator, (e, d, de), 1, dtype),
+        w_up=dense_init(generator, (e, d, de), 1, dtype),
+        w_down=dense_init(generator, (e, de, d), 1, dtype),
+        shared=(swiglu_init(generator, d, de * mo.n_shared, dtype)
+                if mo.n_shared else None),
+    )
+
+
+def _top_k(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest scores along the last axis, ties to the
+    lower index (as ``jax.lax.top_k``; ``torch.topk`` promises no order
+    among ties), by a stable descending sort."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def _expert_ffn(p: MoE, ein: torch.Tensor) -> torch.Tensor:
+    """(E, G, C, d) -> (E, G, C, d): each expert's SwiGLU on its slots."""
+    h = F.silu(torch.einsum("egcd,edf->egcf", ein, p.w_gate)) * torch.einsum(
+        "egcd,edf->egcf", ein, p.w_up)
+    return torch.einsum("egcf,efd->egcd", h, p.w_down)
+
+
+def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig):
+    """Grouped GShard capacity dispatch, the reference's ``moe_apply``:
+    x (B, S, d) -> (y (B, S, d), aux).
+
+    Tokens are cut into groups of ``group_size`` (halved until it divides
+    the B * S tokens), with capacity ``max(1, ceil(Tg * cf * k / E))`` per
+    (group, expert); a decode step (S 1) is one group with capacity T, so
+    no token is dropped.  The router's softmax runs in float32; the top-k
+    gates are renormalised; a token's slot in an expert is its rank among
+    the group's tokens routed there (the cumsum of the scatter-built mask),
+    and a token past the capacity is dropped for that expert.  ``dispatch``
+    "einsum" builds the (G, Tg, E, C) one-hot dispatch and combine;
+    "gather" plans slots by index (a token number per slot, the scratch
+    slot E * C taking every dropped or duplicate write, sliced away before
+    any read).  ``aux``: ``router_probs_mean`` (E,) and ``dropped_frac``,
+    the share of (token, expert) choices dropped."""
+    mo = cfg.moe
+    b, sq, d = x.shape
+    t, e, k = b * sq, mo.n_experts, mo.top_k
+    if sq == 1:
+        # decode: one group, dropless capacity (a dropped token would
+        # silently corrupt a user's next-token logits)
+        tg, cap = t, t
+    else:
+        tg = mo.group_size
+        while t % tg:
+            tg //= 2
+        cap = max(1, -(-int(tg * mo.capacity_factor * k) // e))
+    g = t // tg
+    xt = x.reshape(g, tg, d)
+
+    logits = torch.einsum("gtd,de->gte", xt, p.w_router).float()
+    probs = torch.softmax(logits, dim=-1)
+    select = probs + p.router_bias if mo.router_aux_free_bias else probs
+    idx = _top_k(select, k)  # (G, Tg, K)
+    gates = probs.gather(-1, idx)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # scatter-built routing mask/positions: no (Tg x K x E) one-hot
+    zeros = torch.zeros((g, tg, e), dtype=torch.float32, device=x.device)
+    mask = zeros.scatter_add(-1, idx, torch.ones_like(gates))
+    pos = torch.cumsum(mask, dim=1) * mask - 1.0               # (G, Tg, E)
+    keep = (pos >= 0) & (pos < cap)
+    gate_e = zeros.scatter_add(-1, idx, gates)
+
+    if mo.dispatch == "gather":
+        sel_pos = pos.gather(-1, idx)                          # (G, Tg, K)
+        valid = (sel_pos >= 0) & (sel_pos < cap)
+        slot = idx * cap + sel_pos.clamp_min(0).long()
+        slot = torch.where(valid, slot, torch.full_like(slot, e * cap))
+        tok = torch.arange(1, tg + 1, device=x.device)[None, :, None].expand(
+            g, tg, k)
+        slot_tok = torch.zeros((g, e * cap + 1), dtype=torch.long,
+                               device=x.device)
+        slot_tok.scatter_(1, slot.reshape(g, -1), tok.reshape(g, -1))
+        slot_tok = slot_tok[:, : e * cap]  # the scratch slot is never read
+        gidx = (slot_tok - 1).clamp_min(0)                     # (G, E*C)
+        ein = xt.gather(1, gidx[..., None].expand(g, e * cap, d))
+        ein = ein * (slot_tok > 0)[..., None].to(x.dtype)
+        ein = ein.reshape(g, e, cap, d).permute(1, 0, 2, 3)
+        eout = _expert_ffn(p, ein)
+        eout_g = eout.permute(1, 0, 2, 3).reshape(g, e * cap, d)
+        sel = torch.where(valid, slot, torch.zeros_like(slot)).reshape(
+            g, tg * k)
+        vals = eout_g.gather(1, sel[..., None].expand(g, tg * k, d))
+        w_tok = (gates * valid.float()).to(x.dtype)
+        out = torch.einsum("gtkd,gtk->gtd", vals.reshape(g, tg, k, d), w_tok)
+    elif mo.dispatch == "einsum":
+        # a dropped choice takes class ``cap``, past every slot: a zero row
+        # (compared against the slots, as ``F.one_hot`` checks its range on
+        # the host)
+        cls = torch.where(keep, pos, torch.full_like(pos, cap))
+        slots = torch.arange(cap, device=x.device, dtype=cls.dtype)
+        dispatch = (cls[..., None] == slots).to(x.dtype)      # (G, Tg, E, C)
+        combine = dispatch * gate_e[..., None].to(x.dtype)
+        ein = torch.einsum("gtec,gtd->egcd", dispatch, xt)
+        eout = _expert_ffn(p, ein)
+        out = torch.einsum("gtec,egcd->gtd", combine, eout)
+    else:
+        raise ValueError(f"unknown MoE dispatch {mo.dispatch!r}; expected "
+                         f"'einsum' or 'gather'")
+
+    if mo.n_shared:
+        out = out + swiglu_apply(p.shared, xt.reshape(t, d)).reshape(g, tg, d)
+    aux = {"router_probs_mean": probs.mean((0, 1)),
+           "dropped_frac": 1.0 - keep.sum() / mask.sum().clamp_min(1.0)}
+    return out.reshape(b, sq, d), aux

@@ -1,6 +1,6 @@
 """Model assembly of the port: init, the training/prefill ``forward``, the
-next-token ``loss_fn`` and one-token ``decode_step`` for the dense GQA and
-RWKV families.
+next-token ``loss_fn`` and one-token ``decode_step`` for the dense (GQA and
+MLA), MoE and RWKV families.
 
 Layers run as a Python loop over a ``ModuleList`` (the reference scans
 params stacked on a layer axis).  ``cfg.remat`` wraps each layer as the
@@ -13,8 +13,16 @@ leading layer axis, so a reference cache carries across
 (``convert.cache_from_numpy``); ``decode_step`` updates it in place and
 returns it.  Vocab tables are padded to a multiple of 128 and padded logit
 columns pinned to -1e30, as in the reference, so they never win an argmax
-nor enter the loss.  The other families (moe, MLA, hybrid, encdec, vlm)
-and the MTP head are not ported yet (ROADMAP A12 (b)).
+nor enter the loss.
+
+Families: dense (GQA attention, or MLA where ``cfg.mla`` is set), moe (the
+same attention with the routed-expert FFN) and rwkv.  A moe layer's
+``dropped_frac`` passes out of the remat wrapper beside the hidden state,
+and ``forward``'s aux ``moe_dropped`` is its sum over the layers, as the
+reference's scan sums it.  Not ported yet, each raising
+``NotImplementedError`` naming its ROADMAP item: deepseek-v3's
+``first_k_dense`` stack and MTP head (A12 (b) 3), hybrid (A12 (b) 4),
+encdec (A12 (b) 5) and vlm (A12 (b) 6).
 """
 
 from __future__ import annotations
@@ -38,20 +46,28 @@ def vocab_padded(cfg: ModelConfig) -> int:
     return -(-cfg.vocab // VOCAB_MULTIPLE) * VOCAB_MULTIPLE
 
 
+_NOT_PORTED = {"hybrid": "A12 (b) 4", "encdec": "A12 (b) 5",
+               "vlm": "A12 (b) 6"}
+
+
 def model_kind(cfg: ModelConfig) -> str:
-    """"dense" or "rwkv"; another family raises, naming its ROADMAP item."""
-    if cfg.family == "rwkv":
-        return "rwkv"
-    if cfg.family == "dense" and cfg.mla is None:
-        return "dense"
-    what = "MLA attention" if cfg.mla is not None else f"the {cfg.family} family"
-    raise NotImplementedError(f"{cfg.name}: {what} is not ported yet "
-                              f"(ROADMAP item A12)")
+    """"dense" (GQA or MLA attention), "moe" or "rwkv"; what is not ported
+    yet raises, naming its ROADMAP item."""
+    if cfg.first_k_dense or cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.name}: the first_k_dense layer stack and the MTP head are "
+            f"not ported yet (ROADMAP item A12 (b) 3, deepseek-v3)")
+    if cfg.family in ("dense", "moe", "rwkv"):
+        return cfg.family
+    raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not "
+                              f"ported yet (ROADMAP item "
+                              f"{_NOT_PORTED[cfg.family]})")
 
 
 class Layer(nn.Module):
-    """One block: ``norm1``/``norm2`` and either ``attn`` + ``ffn`` (dense)
-    or ``rwkv`` (time mix and channel mix)."""
+    """One block: ``norm1``/``norm2`` and either ``attn`` (GQA or MLA) +
+    ``ffn`` (SwiGLU, or MoE in the moe family) or ``rwkv`` (time mix and
+    channel mix)."""
 
     def __init__(self, norm1, norm2, *, attn=None, ffn=None, rwkv=None):
         super().__init__()
@@ -82,8 +98,11 @@ def _layer_init(generator, cfg: ModelConfig, kind: str, dtype) -> Layer:
     ones = L.zeros_init((cfg.d_model,), dtype, generator.device, 1.0)
     if kind == "rwkv":
         return Layer(ones, ones.clone(), rwkv=S.rwkv6_init(generator, cfg, dtype))
-    return Layer(ones, ones.clone(), attn=L.gqa_init(generator, cfg, dtype),
-                 ffn=L.swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype))
+    attn_init = L.mla_init if cfg.mla is not None else L.gqa_init
+    attn = attn_init(generator, cfg, dtype)
+    ffn = (L.moe_init(generator, cfg, dtype) if kind == "moe"
+           else L.swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype))
+    return Layer(ones, ones.clone(), attn=attn, ffn=ffn)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -111,9 +130,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device=None) -> dict:
     """Zeroed decode cache, stacked on a leading layer axis as the
-    reference's: dense ``{"layers": {"attn": {"k", "v"}}}`` with k/v (L, B,
-    Hkv, max_len, hd); RWKV ``{"layers": {"wkv", "tm_prev", "cm_prev"}}``.
-    ``device=None`` means CUDA."""
+    reference's: GQA ``{"layers": {"attn": {"k", "v"}}}`` with k/v (L, B,
+    Hkv, max_len, hd); MLA ``{"layers": {"attn": {"ckv", "k_rope"}}}`` with
+    (L, B, max_len, kv_lora_rank) and (L, B, max_len, qk_rope_head_dim);
+    RWKV ``{"layers": {"wkv", "tm_prev", "cm_prev"}}``.  ``device=None``
+    means CUDA."""
     kind = model_kind(cfg)
     dev = resolve_device(device)
     n = cfg.n_layers
@@ -124,7 +145,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     if kind == "rwkv":
         one = S.rwkv6_state_init(cfg, batch, dtype, "meta")
         return {"layers": {name: stacked(t) for name, t in one.items()}}
-    one = L.gqa_cache_init(cfg, batch, max_len, dtype, "meta")
+    cache_init = L.mla_cache_init if cfg.mla is not None else L.gqa_cache_init
+    one = cache_init(cfg, batch, max_len, dtype, "meta")
     return {"layers": {"attn": {name: stacked(t) for name, t in one.items()}}}
 
 
@@ -137,7 +159,9 @@ def _layer_cache(tree, i: int):
 
 def _layer_apply(layer: Layer, x, cfg: ModelConfig, kind: str, *, impl: str,
                  positions, cache=None, cache_pos=None):
-    """One block; a given layer cache is updated in place."""
+    """One block -> (x, dropped): ``dropped`` is the MoE FFN's
+    ``dropped_frac`` (a 0-d float32 tensor), None in the other kinds.  A
+    given layer cache is updated in place."""
     if kind == "rwkv":
         b, d = x.shape[0], cfg.d_model
         hd = cfg.rwkv.head_dim
@@ -159,16 +183,20 @@ def _layer_apply(layer: Layer, x, cfg: ModelConfig, kind: str, *, impl: str,
             cache["wkv"].copy_(wkv_state)
             cache["tm_prev"].copy_(tm_prev)
             cache["cm_prev"].copy_(cm_prev)
-        return x
+        return x, None
 
+    attn_apply = L.mla_apply if cfg.mla is not None else L.gqa_apply
     h = L.rms_norm(x, layer.norm1, cfg.norm_eps)
-    a_out, _ = L.gqa_apply(
+    a_out, _ = attn_apply(
         layer.attn, h, cfg, positions=positions,
         cache=cache["attn"] if cache else None, cache_pos=cache_pos,
         causal=True, impl=impl)
     x = x + a_out
     h2 = L.rms_norm(x, layer.norm2, cfg.norm_eps)
-    return x + L.swiglu_apply(layer.ffn, h2)
+    if kind == "moe":
+        f_out, aux = L.moe_apply(layer.ffn, h2, cfg)
+        return x + f_out, aux["dropped_frac"]
+    return x + L.swiglu_apply(layer.ffn, h2), None
 
 
 def _embed(params: LM, tokens) -> torch.Tensor:
@@ -225,15 +253,20 @@ def forward(params: LM, cfg: ModelConfig, tokens, *, last_only: bool = False,
     positions = torch.arange(x.shape[1], device=x.device)
 
     def layer_fn(layer, h):
-        return _layer_apply(layer, h, cfg, kind, impl=impl,
-                            positions=positions).to(h.dtype)
+        out, dropped = _layer_apply(layer, h, cfg, kind, impl=impl,
+                                    positions=positions)
+        return out.to(h.dtype), dropped
 
+    dropped = []
     for layer in params.layers:
-        x = _rematted(cfg, layer_fn, layer, x)
+        x, layer_dropped = _rematted(cfg, layer_fn, layer, x)
+        if layer_dropped is not None:
+            dropped.append(layer_dropped)
     h = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     if last_only:
         h = h[:, -1:]
-    aux = {"moe_dropped": 0.0}
+    # the reference sums the scan's per-layer dropped_frac (0 without MoE)
+    aux = {"moe_dropped": torch.stack(dropped).sum() if dropped else 0.0}
     if return_hidden:
         return h, aux
     return _logits(params, cfg, h), aux
@@ -284,9 +317,6 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: dict):
     """Masked next-token CE over ``batch["tokens"]`` and ``batch["labels"]``
     (B, S), numpy or tensors; labels below 0 are masked out.  Returns
     (loss, metrics) with metrics ``{"loss", "moe_dropped"}``."""
-    if cfg.mtp:
-        raise NotImplementedError(f"{cfg.name}: the MTP head is not ported "
-                                  f"yet (ROADMAP item A12 (b))")
     labels = torch.as_tensor(batch["labels"], device=params.device).long()
     if cfg.ce_chunk:
         # run the trunk only (skip _logits), then stream the CE
@@ -314,6 +344,6 @@ def decode_step(params: LM, cfg: ModelConfig, cache: dict, tokens, pos):
     for i, layer in enumerate(params.layers):
         x = _layer_apply(layer, x, cfg, kind, impl=impl, positions=positions,
                          cache=_layer_cache(cache["layers"], i),
-                         cache_pos=pos).to(x.dtype)
+                         cache_pos=pos)[0].to(x.dtype)
     h = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits(params, cfg, h), cache

@@ -2,7 +2,7 @@
 time mix over the WKV recurrence (``kernels/rwkv6_wkv``), per-head group
 norm and the squared-ReLU channel mix.  Decode carries O(1) state per
 layer: the WKV state and the two token-shift carries.  The reference's
-Mamba branch (the hybrid family) is not ported yet (ROADMAP A12).
+Mamba branch (the hybrid family) is not ported yet (ROADMAP A12 (b) 4).
 """
 
 from __future__ import annotations

@@ -527,6 +527,44 @@ def test_flash_attention_is_deterministic(cuda, case, dtype):
     assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("case", [
+    (8, 32, 4, 1, 512, 128, True, None, 93, 94),     # qwen3-moe decode
+    (8, 32, 4, 1, 512, 128, True, None, 511, 512),   # ... full cache
+    (4, 32, 4, 512, 512, 128, True, None, 0, None),  # ... training prefill
+])
+def test_flash_attention_at_qwen3_moe_shapes(cuda, case):
+    """D 128 with 8 query heads a KV head, float32."""
+    b, hq, hkv, sq, skv, d, causal, window, q_offset, kv_len = case
+    gen = torch.Generator(cuda).manual_seed(sq + skv)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    got = fa_ops.flash_attention(q, k, v, causal, window, q_offset, kv_len)
+    want = fa_ref.mha_plain(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, kv_len=kv_len)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,sq,q_offset,kv_len", [
+    (8, 1, 93, 94), (8, 1, 511, 512), (4, 512, 0, None)])
+def test_flash_attention_in_the_mla_layout(cuda, b, sq, q_offset, kv_len):
+    """minicpm3-4b's naive MLA call: 40 heads, QK width 96 (nope 64 + the
+    rope key 32 broadcast over the heads), V 64 padded to 96; the wrapper
+    pads 96 to the kernel's 128, float32."""
+    gen = torch.Generator(cuda).manual_seed(sq)
+    skv = 512 if kv_len is not None else sq
+    q = torch.randn((b, 40, sq, 96), generator=gen, device=cuda)
+    k_nope = torch.randn((b, 40, skv, 64), generator=gen, device=cuda)
+    k_rope = torch.randn((b, 1, skv, 32), generator=gen, device=cuda)
+    k = torch.cat([k_nope, k_rope.expand(b, 40, skv, 32)], dim=-1)
+    v = torch.nn.functional.pad(
+        torch.randn((b, 40, skv, 64), generator=gen, device=cuda), (0, 32))
+    got = fa_ops.flash_attention(q, k, v, True, None, q_offset, kv_len)
+    want = fa_ref.mha_plain(q, k, v, q_offset=q_offset, kv_len=kv_len)
+    assert got.shape == q.shape
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert bool((got[..., 64:] == 0).all())  # V's zero columns stay zero
+
+
 WKV_CASES = [  # (b, h, t, dk, dv)
     (2, 3, 70, 16, 16), (1, 2, 64, 32, 16), (1, 1, 128, 64, 64),
     (8, 64, 1, 64, 64), (1, 4, 1000, 64, 64), (2, 2, 17, 128, 128),
@@ -685,6 +723,39 @@ def test_serve_engine_on_card_equals_cpu(cuda, arch):
             eng.submit(prompt, max_new)
         out.append(eng.run_to_completion())
     assert out[1] == out[0]
+
+
+@pytest.mark.parametrize("arch,absorb", [("qwen3-moe-30b-a3b", False),
+                                         ("minicpm3-4b", True),
+                                         ("minicpm3-4b", False)])
+def test_families_on_card_equal_cpu(cuda, arch, absorb):
+    """Reduced qwen3-moe and minicpm3 (absorbed and naive decode): forward
+    and 6 decode steps on the card against the CPU run of the same params,
+    1e-4; one flash_attention launch a layer and step, none in the absorbed
+    decode."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+
+    cfg, p_cpu, p_gpu = lm_pair(arch, cuda)
+    if cfg.mla is not None:
+        cfg = dataclasses.replace(cfg, mla_absorb=absorb)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, size=(3, 6))
+    caches = [M.init_cache(cfg, 3, 16, device="cpu"),
+              M.init_cache(cfg, 3, 16, device=cuda)]
+    before = fa_ops.flash_attention.launches
+    for t in range(6):
+        want, caches[0] = M.decode_step(p_cpu, cfg, caches[0], toks[:, t:t + 1], t)
+        got, caches[1] = M.decode_step(p_gpu, cfg, caches[1], toks[:, t:t + 1], t)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert fa_ops.flash_attention.launches - before == (
+        0 if absorb else 6 * cfg.n_layers)
+    before = fa_ops.flash_attention.launches
+    full, aux = M.forward(p_gpu, cfg, torch.as_tensor(toks, device=cuda))
+    assert fa_ops.flash_attention.launches - before == cfg.n_layers
+    want_full, want_aux = M.forward(p_cpu, cfg, torch.as_tensor(toks))
+    torch.testing.assert_close(full.cpu(), want_full, rtol=1e-4, atol=1e-4)
+    assert float(aux["moe_dropped"]) == float(want_aux["moe_dropped"])
 
 
 # ---------------------------------------------------------------------------
