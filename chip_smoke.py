@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 1,2,13     # the multi-device path
     python3 chip_smoke.py --phases 1,2,14     # training (dense, RWKV-6)
     python3 chip_smoke.py --phases 1,2,15     # the MoE and MLA families
+    python3 chip_smoke.py --phases 1,2,16     # deepseek-v3
 
 Phases:
 
@@ -123,7 +124,9 @@ Phases:
               the killed and the resumed job), and wkv6 and wkv6_backward
               on rwkv6-7b's; on phase 15 flash_attention on qwen3-moe's
               serve and ``Trainer.run``, on minicpm3-4b's naive serve and
-              its ``Trainer.run``, and none on its absorbed serve.
+              its ``Trainer.run``, and none on its absorbed serve; on phase
+              16 flash_attention on deepseek-v3's naive serve and its
+              ``Trainer.run``, and none on its absorbed serve.
 9. store    — ``GraphStore`` + ``IncrementalIndex`` on the card: the
               join-heavy graph with ``random_update_batches(.., 8, 4096,
               delete_frac=0.35, seed=1)``, and the scale graph seeded as a
@@ -316,17 +319,55 @@ Phases:
               each grad leaf within 1e-3 of its largest plain value; the
               router decisions that differ between the two runs counted,
               each to be a tie below 1e-5 if any do, when the bounds are
-              not held); (c) minicpm3-4b at 8 of its 62 layers serves the
+              not held); (c) minicpm3-4b at 4 of its 62 layers serves the
               16 requests with its absorbed decode (no flash launch) and
-              with the naive one on the kernel (D 96, padded to 128) and on
-              the plain version, whose tokens must be equal; teacher-forced
+              with the naive one on the kernel (QK 96 / V 64, read in
+              place) and on the plain version, whose tokens must be equal;
+              teacher-forced
               logits, absorbed against naive on the kernel, within 2e-3;
               (d) minicpm3-4b at 4 layers trained as (b), 8 flash launches
               a step; (e) flash_attention at qwen3-moe's decode (B 8, 32/4
               heads, D 128) and training prefill (4, 32/4, 512, 128) and at
-              minicpm3's training prefill and naive decode (40 heads, D 96,
-              V 64 padded), each against its plain version and timed as in
-              phase 3 (SDPA on the unpadded tensors as the library call).
+              minicpm3's training prefill and naive decode (40 heads, QK
+              96 / V 64, V a permuted view as the layer's einsum leaves it),
+              each against its plain version and timed as in phase 3 (SDPA
+              on the same tensors as the library call); the two MLA shapes
+              also through the path they took before the kernels read MLA's
+              widths in place (q, k and v padded to 128 by copies).
+
+16. deepseek — deepseek-v3-671b at its published widths (hf:deepseek-ai/
+              DeepSeek-V3: d 7168, 128 heads, MLA 1536 / 512 / 128 + 64 /
+              128, d_ff 18432, 256 routed experts of 2048 + 1 shared, top-8,
+              vocab 129,280), float32, seeded params, every earlier phase's
+              device memory freed first; the depth cut to 1 of its 3 dense
+              layers and 1 of its 58 MoE layers, logged, and the parameter
+              bytes reckoned from the shapes and printed (with the card's
+              free memory) before the first allocation: (a) the absorbed
+              decode (its config) serves 8 requests of 8-32 prompt tokens
+              and 16 new tokens each on 8 slots (max_len 512): tokens,
+              median step, tokens/s, peak memory, no flash launch, and one
+              profiled step (busy share, top device ops, the GEMM kernels'
+              share); (b) the same params with the naive decode
+              (``mla_absorb=False``: flash_attention's decode at QK 192 / V
+              128, one launch a layer and step) on the kernel and on the
+              plain version: equal tokens, or a differing token explained
+              by a router tie below 1e-5 as in phase 15 (a); teacher-forced
+              logits, absorbed against naive, within 2e-3; (c) 1 dense + 1
+              MoE layer + the MTP head trained, the routed experts cut from
+              256 to 16 (logged: AdamW's 16 bytes a parameter put the 256
+              experts' state alone at 180 GB; top-8 and the shared expert
+              kept), remat "full", B 2 x S 512 (B 1, logged, if the
+              training state's plan leaves less than 12 GB free), 5 steps:
+              finite losses, each step's ``moe_dropped`` and ``mtp_loss``,
+              exactly 5 flash launches a step (each layer's forward and
+              recompute, the MTP layer's forward), median step, tokens/s,
+              peak memory, then loss and grads against ``attn_impl="ref"``
+              as phase 15 (b); (d) flash_attention at deepseek's training
+              prefill (2, 128/128, 512, QK 192 / V 128, causal) and naive
+              decode (8, 128/128, 1, 192 / 128, Skv 512, kv_len 94), each
+              against its plain version and timed as phase 15 (e), and
+              ptxas's registers and spills for the MLA instances beside
+              the dynamic shared memory of these launches.
 
 Any failure propagates: the script exits non-zero and prints no result.
 The last line of a passing run is
@@ -339,6 +380,7 @@ import argparse
 import ctypes
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -2563,23 +2605,24 @@ def record_serve(lm, arch: str, keep_every: int = 64):
     return kept + longest, seen
 
 
-def flash_bound(q, k, kw):
-    """Least time for one attention call: q, the K/V rows some query sees
-    and the output, each moved once, against 4 D operations per visible
-    (query, key) pair at the input type's peak rate."""
+def flash_bound(q, k, v, kw):
+    """Least time for one attention call: q, the K (D wide) and V (Dv wide)
+    rows some query sees and the output (Dv wide), each moved once, against
+    2 (D + Dv) operations per visible (query, key) pair (Q K^T and P V) at
+    the input type's peak rate."""
     from repro_torch.kernels.flash_attention.ref import visible_mask
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     mask = visible_mask(sq, skv, causal=kw.get("causal", True),
                         window=kw.get("window"), q_offset=kw.get("q_offset", 0),
                         kv_len=kw.get("kv_len"), device=q.device)
     pairs = int(mask.sum()) * b * hq
     keys = int(mask.any(0).sum())
     size = q.element_size()
-    n_bytes = 2 * q.numel() * size + 2 * b * hkv * keys * d * size
+    n_bytes = (q.numel() + b * hq * sq * dv + b * hkv * keys * (d + dv)) * size
     rate = SCALAR_OPS_PER_S if q.dtype == torch.float32 else BF16_OPS_PER_S
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * d * pairs / rate * 1e3
+    t_ops = 2 * (d + dv) * pairs / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2724,7 +2767,7 @@ def phase_lm_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref):
     n = kw["kv_len"]
     timings["flash_attention"] = time_kernel(
         "flash_attention", lambda: fa_ops.flash_attention(q, k, v, **kw),
-        lambda: fa_ref.mha_plain(q, k, v, **kw), flash_bound(q, k, kw),
+        lambda: fa_ref.mha_plain(q, k, v, **kw), flash_bound(q, k, v, kw),
         f"granite decode B={q.shape[0]} Hq={q.shape[1]} Hkv={k.shape[1]} "
         f"Skv={k.shape[2]} kv_len={n}",
         lambda: sdpa(q, k[:, :, :n], v[:, :, :n], enable_gqa=True))
@@ -2739,13 +2782,13 @@ def phase_lm_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref):
         "flash_attention_decode512",
         lambda: fa_ops.flash_attention(q, k512, v512, **kw512),
         lambda: fa_ref.mha_plain(q, k512, v512, **kw512),
-        flash_bound(q, k512, kw512),
+        flash_bound(q, k512, v512, kw512),
         f"granite decode B={q.shape[0]} Hq={q.shape[1]} Hkv={k.shape[1]} "
         f"Skv={skv} kv_len={skv}",
         lambda: sdpa(q, k512, v512, enable_gqa=True))
     lib = fa_ops.library()
     ptxas_report(lib, ("decode_kernel", "prefill_kernel"), {
-        f"{shape} {dt}": lib.lib.flash_attention_smem(hq, hkv, sq, 64, code)
+        f"{shape} {dt}": lib.lib.flash_attention_smem(hq, hkv, sq, 64, 64, code)
         for shape, (hq, hkv, sq) in (("decode", (32, 8, 1)),
                                      ("prefill", (32, 8, 2048)))
         for dt, code in (("float32", 0), ("bfloat16", 1))})
@@ -2779,13 +2822,13 @@ def phase_lm_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref):
     q, k, v, kw = inputs["prefill_2048"]
     timings["flash_attention_prefill"] = time_kernel(
         "flash_attention_prefill", lambda: fa_ops.flash_attention(q, k, v),
-        lambda: fa_ref.mha_plain(q, k, v), flash_bound(q, k, kw),
+        lambda: fa_ref.mha_plain(q, k, v), flash_bound(q, k, v, kw),
         "prefill B=1 Hq=32 Hkv=8 S=2048 causal",
         lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
     q, k, v, kw = inputs["bf16_prefill_2048"]
     timings["flash_attention_prefill_bf16"] = time_kernel(
         "flash_attention_prefill_bf16", lambda: fa_ops.flash_attention(q, k, v),
-        lambda: fa_ref.mha_plain(q, k, v), flash_bound(q, k, kw),
+        lambda: fa_ref.mha_plain(q, k, v), flash_bound(q, k, v, kw),
         "prefill B=1 Hq=32 Hkv=8 S=2048 causal bfloat16 (float32 maths)",
         lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
 
@@ -2834,13 +2877,14 @@ def top2_margins(logits, vocab):
     return (top[:, 0] - top[:, 1]).cpu()
 
 
-def serve_once(lm, params, cfg, record_margins=False, token_steps=None):
-    """Phase 10's requests through ``ServeEngine``: (done, wall seconds,
-    per-decode device ms from CUDA events, {(rid, j): top-2 margin}).
-    ``token_steps``, if given, is filled with {(rid, j): (decode call,
-    slot)} for every token served."""
+def serve_once(lm, params, cfg, record_margins=False, token_steps=None,
+               requests=None):
+    """Phase 10's requests (or ``requests``, (prompt, max_new) pairs)
+    through ``ServeEngine``: (done, wall seconds, per-decode device ms from
+    CUDA events, {(rid, j): top-2 margin}).  ``token_steps``, if given, is
+    filled with {(rid, j): (decode call, slot)} for every token served."""
     eng = lm.ServeEngine(params, cfg, lm.ServeConfig(**SERVE_CONFIG))
-    for prompt, max_new in serve_requests(cfg.vocab):
+    for prompt, max_new in requests or serve_requests(cfg.vocab):
         eng.submit(prompt, max_new)
     reqs, events, margins, last = list(eng.queue), [], {}, {}
     decode, tick = eng._decode, eng.tick
@@ -3365,7 +3409,6 @@ def mesh_service_scale(main, core, graphs, serve, store, queries):
 
 def phase_mesh(main, core, graphs, search, scale: float):
     """Phase 13: the multi-device path on logical shards of the one card."""
-    import gc
     import tempfile
 
     from repro_torch import serve
@@ -3409,7 +3452,8 @@ def phase_mesh(main, core, graphs, search, scale: float):
 
 # granite-3-2b's (a), (b) and (d) batches, and rwkv6-7b's (c) and (d)
 TRAIN_SHAPE = {"granite-3-2b": (4, 512), "rwkv6-7b": (4, 256),
-               "qwen3-moe-30b-a3b": (4, 512), "minicpm3-4b": (4, 512)}
+               "qwen3-moe-30b-a3b": (4, 512), "minicpm3-4b": (4, 512),
+               "deepseek-v3-671b": (2, 512)}
 TRAIN_FULL_STEPS = 8      # (a): granite at full depth
 TRAIN_RESUME_STEPS = 30   # (b): 2 layers, a commit at step 15, keep 1
 TRAIN_RWKV_STEPS = 5      # (c): rwkv6-7b, 2 layers
@@ -3644,15 +3688,16 @@ def loss_grads(tm, cfg, params, batch):
 
 
 def train_grads(tm, arch: str, loss_rtol: float, grad_tol: float,
-                n_layers: int = 2, tag: str = "(d)"):
-    """Loss and grads of ``n_layers`` full-width layers on the kernels
-    against the same on the plain versions (``attn_impl="ref"``), same
-    params and batch; each grad leaf within ``grad_tol`` x its largest
-    plain value.  An MoE model's router decisions are compared too: where
-    some differ between the runs, the bounds are not held, and each one's
-    margin must be a tie at float error (below ``TIE_MARGIN``)."""
-    cfg = dataclasses.replace(tm.get_config(arch), n_layers=n_layers)
-    b, s = TRAIN_SHAPE[arch]
+                n_layers: int = 2, tag: str = "(d)", cfg=None, shape=None):
+    """Loss and grads of ``n_layers`` full-width layers (or ``cfg``) on the
+    kernels against the same on the plain versions (``attn_impl="ref"``),
+    same params and batch (``TRAIN_SHAPE[arch]`` or ``shape``); each grad
+    leaf within ``grad_tol`` x its largest plain value.  An MoE model's
+    router decisions are compared too: where some differ between the runs,
+    the bounds are not held, and each one's margin must be a tie at float
+    error (below ``TIE_MARGIN``)."""
+    cfg = cfg or dataclasses.replace(tm.get_config(arch), n_layers=n_layers)
+    b, s = shape or TRAIN_SHAPE[arch]
     params = tm.M.init_params(cfg, torch.Generator("cuda").manual_seed(4),
                               "cuda")
     params.requires_grad_(True)
@@ -3668,7 +3713,7 @@ def train_grads(tm, arch: str, loss_rtol: float, grad_tol: float,
             for name, g in grads_k.items()}
     worst_name = max(errs, key=errs.get)
     worst = errs[worst_name]
-    log(f"  {tag} {arch} x{n_layers} layers: loss kernels {loss_k:.7f}, plain "
+    log(f"  {tag} {arch} x{cfg.n_layers} layers: loss kernels {loss_k:.7f}, plain "
         f"{loss_p:.7f} (rel diff {rel:.3g}, limit {loss_rtol:g}); largest grad "
         f"diff {worst:.3g} of the leaf's max at {worst_name} (limit "
         f"{grad_tol:g})")
@@ -3728,7 +3773,7 @@ def train_kernel_times(fa_ops, fa_ref, wkv_ops, wkv_ref, steps):
     err_fa = check_flash(fa_ops, fa_ref, "train_prefill", q, k, v, {})
     tim = {"flash_attention_train": time_kernel(
         "flash_attention_train", lambda: fa_ops.flash_attention(q, k, v),
-        lambda: fa_ref.mha_plain(q, k, v), flash_bound(q, k, {}),
+        lambda: fa_ref.mha_plain(q, k, v), flash_bound(q, k, v, {}),
         f"training prefill B={b} Hq=32 Hkv=8 S={s} causal float32",
         lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))}
     bwd = backward_ms(fa_ops.flash_attention, (q, k, v), (randn(b, 32, s, 64),))
@@ -3819,8 +3864,6 @@ def check_wkv_backward(wkv_ops, wkv_ref, name, args, cot, tol):
 def free_earlier_phases(stores):
     """Drop the device memory earlier phases hold: the stores phase 9 left
     for phase 11 and the cached scale graph, store and queries."""
-    import gc
-
     stores.clear()
     scale_store.cache_clear()
     scale_graph.cache_clear()
@@ -3831,8 +3874,6 @@ def free_earlier_phases(stores):
 
 def phase_train(main, fa_ops, fa_ref, wkv_ops, wkv_ref, stores):
     """Phase 14: training on the card (a)-(e)."""
-    import gc
-
     tm = train_modules()
     free_earlier_phases(stores)  # (a) needs about 45 GB
     held = torch.cuda.memory_allocated()
@@ -3869,9 +3910,10 @@ def phase_train(main, fa_ops, fa_ref, wkv_ops, wkv_ref, stores):
 # ---------------------------------------------------------------------------
 
 # depth cut to fit the phase's budget (widths stay the published ones):
-# qwen3-moe-30b-a3b 4 of 48 layers served, 2 trained; minicpm3-4b 8 of 62
-# served, 4 trained
-FAMILY_SERVE_LAYERS = {"qwen3-moe-30b-a3b": 4, "minicpm3-4b": 8}
+# qwen3-moe-30b-a3b 4 of 48 layers served, 2 trained; minicpm3-4b 4 of 62
+# served (8 until phase 16 joined the run, cut to keep the whole run near
+# its 1,100 s aim), 4 trained
+FAMILY_SERVE_LAYERS = {"qwen3-moe-30b-a3b": 4, "minicpm3-4b": 4}
 FAMILY_TRAIN_LAYERS = {"qwen3-moe-30b-a3b": 2, "minicpm3-4b": 4}
 FAMILY_TRAIN_STEPS = 5
 # a router decision whose k-th and (k+1)-th selection scores lie closer
@@ -3920,7 +3962,7 @@ def route_diffs(a: RouterLog, b: RouterLog):
     return out
 
 
-def explain_flips(lm, params, cfg, cfg_ref, bad, margins):
+def explain_flips(lm, params, cfg, cfg_ref, bad, margins, requests=None):
     """Phase 15 (a)'s report on differing tokens: both serves again with
     every router decision logged.  Prints the first decision whose expert
     set differs and, for each differing token, its top-2 logit margin and
@@ -3930,7 +3972,7 @@ def explain_flips(lm, params, cfg, cfg_ref, bad, margins):
     for c in (cfg, cfg_ref):
         st = {}
         with RouterLog(lm.L) as rl:
-            serve_once(lm, params, c, token_steps=st)
+            serve_once(lm, params, c, token_steps=st, requests=requests)
         logs.append(rl)
         steps.append(st)
     n = cfg.n_layers
@@ -3956,24 +3998,26 @@ def explain_flips(lm, params, cfg, cfg_ref, bad, margins):
     log(f"  every differing token follows a router tie at float error")
 
 
-def family_params(lm, cfg, tag):
+def family_params(lm, cfg, tag, label="[15 families]"):
     t0 = time.perf_counter()
     params = lm.M.init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
     n = sum(p.numel() for p in params.parameters())
-    log(f"[15 families] {tag} {cfg.name} at {cfg.n_layers} of its layers: "
+    log(f"{label} {tag} {cfg.name} at {cfg.n_layers} of its layers: "
         f"{n:,} params ({n * 4 / 1e9:.2f} GB float32) drawn in "
         f"{time.perf_counter() - t0:.2f} s")
     return params
 
 
-def family_serve(main, lm, params, cfg, path, tag):
-    """One serve of phase 10's requests as ``path``'s entry-point call; logs
-    tokens/s and the median step, and checks the flash launches a step."""
+def family_serve(main, lm, params, cfg, path, tag, phase=15, requests=None):
+    """One serve of phase 10's requests (or ``requests``) as ``path``'s
+    entry-point call; logs tokens/s and the median step, and checks the
+    flash launches a step."""
     done, wall, step_ms, _ = main.run(
-        path, lambda: serve_once(lm, params, cfg), phase=15)
+        path, lambda: serve_once(lm, params, cfg, requests=requests),
+        phase=phase)
     n_tok = sum(len(t) for _, t in done)
-    launches = main.counts[(15, path)]["flash_attention"]
+    launches = main.counts[(phase, path)]["flash_attention"]
     want = 0 if cfg.mla is not None and cfg.mla_absorb else cfg.n_layers
     log(f"  {tag} {path}: {len(done)} requests, {n_tok} tokens in {wall:.3f} s "
         f"= {n_tok / wall:.2f} tokens/s; {len(step_ms)} decode steps, median "
@@ -3984,7 +4028,7 @@ def family_serve(main, lm, params, cfg, path, tag):
         raise AssertionError(f"{path}: {launches} flash_attention launches in "
                              f"{len(step_ms)} decode steps, expected {want} a "
                              f"step")
-    return done
+    return done, step_ms
 
 
 def serve_moe(main, lm):
@@ -3995,7 +4039,7 @@ def serve_moe(main, lm):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     params = family_params(lm, cfg, "(a)")
-    done = family_serve(main, lm, params, cfg, arch, "(a)")
+    done, _ = family_serve(main, lm, params, cfg, arch, "(a)")
     cfg_ref = dataclasses.replace(cfg, attn_impl="ref")
     done_ref, wall_ref, step_ref, margins = serve_once(lm, params, cfg_ref,
                                                        record_margins=True)
@@ -4033,11 +4077,13 @@ def serve_mla(main, lm):
     naive = dataclasses.replace(cfg, mla_absorb=False)
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
+    log(f"[15 families] (c) depth cut: {arch} served at {cfg.n_layers} of "
+        f"its 62 layers (8 before phase 16 joined the run)")
     params = family_params(lm, cfg, "(c)")
-    done_abs = family_serve(main, lm, params, cfg, arch, "(c)")
+    done_abs, _ = family_serve(main, lm, params, cfg, arch, "(c)")
     log(f"  (c) {arch}: the absorbed decode launches no flash_attention (its "
         f"latent-space attention is plain torch, as in the reference)")
-    done = family_serve(main, lm, params, naive, f"{arch}_naive", "(c)")
+    done, _ = family_serve(main, lm, params, naive, f"{arch}_naive", "(c)")
     naive_ref = dataclasses.replace(naive, attn_impl="ref")
     done_ref, wall_ref, step_ref, margins = serve_once(lm, params, naive_ref,
                                                        record_margins=True)
@@ -4065,70 +4111,106 @@ def serve_mla(main, lm):
     torch.cuda.empty_cache()
 
 
-def train_family(main, tm, arch, tag, held):
-    """(b) / (d): ``arch`` at full width and ``FAMILY_TRAIN_LAYERS`` deep,
-    5 steps: finite losses, each step's ``moe_dropped``, two flash launches
-    a layer and step (forward and remat recompute), then the kernel path's
-    loss and grads against the plain path's."""
-    cfg = dataclasses.replace(tm.get_config(arch),
-                              n_layers=FAMILY_TRAIN_LAYERS[arch])
-    shape = TRAIN_SHAPE[arch]
-    log(f"[15 families] {tag} {cfg.name} at {cfg.n_layers} layers: d "
+def train_family(main, tm, arch, tag, held, *, cfg=None, shape=None,
+                 phase=15, label="[15 families]"):
+    """(b) / (d): ``arch`` at full width and ``FAMILY_TRAIN_LAYERS`` deep (or
+    ``cfg`` at ``shape``), 5 steps: finite losses, each step's
+    ``moe_dropped`` (and ``mtp_loss`` with an MTP head), two flash launches
+    a layer and step (forward and remat recompute) and one for the MTP
+    layer (not rematted), then the kernel path's loss and grads against the
+    plain path's."""
+    cfg = cfg or dataclasses.replace(tm.get_config(arch),
+                                     n_layers=FAMILY_TRAIN_LAYERS[arch])
+    shape = shape or TRAIN_SHAPE[arch]
+    path = f"{arch}_train"
+    log(f"{label} {tag} {cfg.name} at {cfg.n_layers} layers: d "
         f"{cfg.d_model}, remat {cfg.remat!r}, B x S {shape}, float32")
     torch.cuda.reset_peak_memory_stats()
-    dropped, plain = [], tm.M.loss_fn
+    step_metrics, plain = [], tm.M.loss_fn
 
     def recording(*args, **kw):
         loss, metrics = plain(*args, **kw)
-        dropped.append(metrics["moe_dropped"])
+        step_metrics.append({k: torch.as_tensor(v).detach()
+                             for k, v in metrics.items()})
         return loss, metrics
 
     tm.M.loss_fn = recording
     try:
-        params, _, hist = train_job(
-            main, tm, cfg, f"{arch}_train", shape,
+        params, opt_state, hist = train_job(
+            main, tm, cfg, path, shape,
             dict(steps=FAMILY_TRAIN_STEPS, lr=3e-4, warmup=1, log_every=1),
-            phase=15)
+            phase=phase)
+        del opt_state  # train_grads below needs its room
     finally:
         tm.M.loss_fn = plain
     log(f"  {sum(p.numel() for p in params.parameters()):,} params, "
         f"{state_gb(params):.2f} GB of params, grads, m and v")
-    if cfg.moe is not None:
-        log(f"  {tag} moe_dropped each step: "
-            f"{[round(float(x), 5) for x in dropped]}")
+    for name in (["moe_dropped"] if cfg.moe else []) + (
+            ["mtp_loss"] if cfg.mtp else []):
+        log(f"  {tag} {name} each step: "
+            f"{[round(float(m[name]), 5) for m in step_metrics]}")
     med, per_step = report_steps(tag, shape, hist,
-                                 main.counts[(15, f"{arch}_train")],
+                                 main.counts[(phase, path)],
                                  "flash_attention", 2, held)
-    if per_step != 2 * cfg.n_layers:
+    want = 2 * cfg.n_layers + cfg.mtp
+    if per_step != want:
         raise AssertionError(f"{tag}: {per_step} flash_attention launches a "
-                             f"step, expected {2 * cfg.n_layers} (forward and "
-                             f"remat recompute)")
+                             f"step, expected {want} (forward and remat "
+                             f"recompute a layer, once for an MTP layer)")
     del params
+    gc.collect()
     torch.cuda.empty_cache()
-    train_grads(tm, arch, 1e-5, 1e-3, n_layers=cfg.n_layers, tag=tag)
+    train_grads(tm, arch, 1e-5, 1e-3, n_layers=cfg.n_layers, tag=tag,
+                cfg=cfg, shape=shape)
     return med
 
 
-def mla_inputs(gen, b, h, sq, skv):
-    """minicpm3-4b's naive attention call: q (b, h, sq, 96), k from the
-    per-head nope key (64) and the rope key (32) broadcast over the heads,
-    V 64 padded to 96; also the unpadded V for SDPA."""
+def mla_inputs(gen, b, h, sq, skv, nope=64, rope=32, dv=64):
+    """A naive MLA attention call (minicpm3-4b's widths unless given): q
+    (b, h, sq, nope + rope), k from the per-head nope key and the rope key
+    broadcast over the heads, and V at its own width as the layer's einsum
+    leaves it, a (b, skv, h, dv) tensor seen as (b, h, skv, dv); the
+    kernel reads all three where they lie."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
-    q = randn(b, h, sq, 96)
-    k = torch.cat([randn(b, h, skv, 64), randn(b, 1, skv, 32).expand(
-        b, h, skv, 32)], dim=-1)
-    v = randn(b, h, skv, 64)
-    return q, k, torch.nn.functional.pad(v, (0, 32)), v
+    q = randn(b, h, sq, nope + rope)
+    k = torch.cat([randn(b, h, skv, nope), randn(b, 1, skv, rope).expand(
+        b, h, skv, rope)], dim=-1)
+    v = randn(b, skv, h, dv).permute(0, 2, 1, 3)
+    return q, k, v
+
+
+def time_flash_case(fa_ops, fa_ref, name, q, k, v, kw, shape):
+    """``check_flash`` and ``time_kernel`` of one call, with SDPA (with
+    ``enable_gqa``; over the first kv_len keys for a decode, ``is_causal``
+    for a prefill) as the library call."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    err = check_flash(fa_ops, fa_ref, name, q, k, v, kw)
+    n = kw.get("kv_len", k.shape[2])
+    library = (lambda: sdpa(q, k[:, :, :n], v[:, :, :n], enable_gqa=True)) \
+        if kw else (lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    return err, time_kernel(
+        name, lambda: fa_ops.flash_attention(q, k, v, **kw),
+        lambda: fa_ref.mha_plain(q, k, v, **kw),
+        flash_bound(q, k, v, kw), shape, library)
+
+
+def padded_path_ms(fa_ops, q, k, v, kw) -> float:
+    """Device ms of the path MLA's widths took before the kernels read them
+    in place: q, k and v padded to 128 columns (the copies included) and
+    the (128, 128) kernel."""
+    def call():
+        return fa_ops.flash_attention(*[torch.nn.functional.pad(
+            x, (0, 128 - x.shape[-1])) for x in (q, k, v)], **kw)
+    return device_ms(call)
 
 
 def family_kernel_times(fa_ops, fa_ref):
     """(e): flash_attention at the four shapes this phase puts on a path,
     checked against its plain version and timed as phase 3 times it (SDPA
-    with ``enable_gqa`` as the library call; on the unpadded tensors for
-    the D 96 rows)."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
+    with ``enable_gqa`` as the library call, on the same tensors); the MLA
+    D 96 rows also through the old padded path, for comparison."""
     gen = torch.Generator("cuda").manual_seed(6)
 
     def randn(*shape):
@@ -4147,36 +4229,22 @@ def family_kernel_times(fa_ops, fa_ref):
             f"causal float32"),
     }
     b, s = TRAIN_SHAPE["minicpm3-4b"]
-    q, k, v, v64 = mla_inputs(gen, b, 40, s, s)
     cases["flash_attention_mla_train"] = (
-        (q, k, v), {}, f"minicpm3 training prefill B={b} H=40 S={s} D=96 "
-        f"(128 in the kernel) causal float32", v64)
-    q, k, v, v64 = mla_inputs(gen, 8, 40, 1, 512)
+        mla_inputs(gen, b, 40, s, s), {}, f"minicpm3 training prefill B={b} "
+        f"H=40 S={s} D=96 V=64 causal float32 (read in place)")
     cases["flash_attention_mla_decode"] = (
-        (q, k, v), dec, "minicpm3 naive decode B=8 H=40 D=96 (128 in the "
-        "kernel) Skv=512 kv_len=94", v64)
-    for name, (qkv, kw, shape, *unpadded) in cases.items():
-        q, k, v = qkv
-        err = max(err, check_flash(fa_ops, fa_ref, name, q, k, v, kw))
-        n = kw.get("kv_len", k.shape[2])
-        lib_v = unpadded[0] if unpadded else v
-        library = (lambda q=q, k=k, lib_v=lib_v, n=n: sdpa(
-            q, k[:, :, :n], lib_v[:, :, :n], enable_gqa=True)) if kw else (
-            lambda q=q, k=k, lib_v=lib_v: sdpa(q, k, lib_v, is_causal=True,
-                                               enable_gqa=True))
-        tim[name] = time_kernel(
-            name, lambda q=q, k=k, v=v, kw=kw: fa_ops.flash_attention(q, k, v, **kw),
-            lambda q=q, k=k, v=v, kw=kw: fa_ref.mha_plain(q, k, v, **kw),
-            flash_bound(q, k, kw), shape, library)
-        if unpadded:  # split the wrapper's pad copies from the kernel
-            wide = [torch.nn.functional.pad(x, (0, 128 - x.shape[-1]))
-                    for x in (q, k, v)]
-            ms = device_ms(lambda wide=wide, kw=kw: fa_ops.flash_attention(
-                *wide, **kw))
-            log(f"  time {name} on inputs already 128 wide (the kernel alone, "
-                f"no pad copies; its scale 1/sqrt(128)): {ms:.5f} ms on the "
+        mla_inputs(gen, 8, 40, 1, 512), dec, "minicpm3 naive decode B=8 H=40 "
+        "D=96 V=64 Skv=512 kv_len=94 (read in place)")
+    for name, ((q, k, v), kw, shape) in cases.items():
+        e, tim[name] = time_flash_case(fa_ops, fa_ref, name, q, k, v, kw,
+                                       shape)
+        err = max(err, e)
+        if v.shape[-1] < k.shape[-1]:
+            ms = padded_path_ms(fa_ops, q, k, v, kw)
+            log(f"  time {name} through the padded path (q, k, v padded to "
+                f"128 by copies, the (128, 128) kernel): {ms:.5f} ms on the "
                 f"device")
-            tim[name]["prepadded_ms"] = ms
+            tim[name]["padded_path_ms"] = ms
     return err, tim
 
 
@@ -4203,9 +4271,230 @@ def phase_families(main, fa_ops, fa_ref, stores):
     return err, tim
 
 
+# ---------------------------------------------------------------------------
+# phase 16: deepseek-v3 at its published widths
+# ---------------------------------------------------------------------------
+
+DEEPSEEK = "deepseek-v3-671b"
+# depth cut to fit one card (the widths stay the published ones): 1 of the 3
+# dense layers and 1 of the 58 MoE layers, served and trained
+DEEPSEEK_DEPTH = dict(n_layers=2, first_k_dense=1)
+# (c)'s expert cut: AdamW keeps 16 bytes a parameter (params, grads, m, v),
+# so 256 routed experts' state alone is 180 GB; top-8 and the shared
+# expert stay
+DEEPSEEK_TRAIN_EXPERTS = 16
+DEEPSEEK_REQUESTS, DEEPSEEK_MAX_NEW = 8, 16
+# room kept beside (c)'s training state for activations and the optimizer's
+# temporaries (a leaf's update holds two of its size; the embedding is 3.7
+# GB)
+TRAIN_ROOM_GB = 12.0
+
+
+def deepseek_requests(vocab: int):
+    """(a)'s requests: 8 prompts of ``default_rng(0).integers(8, 33)``
+    tokens, uniform in the vocab, 16 new tokens each."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(8, 33, size=DEEPSEEK_REQUESTS)
+    return [(rng.integers(0, vocab, size=int(n)), DEEPSEEK_MAX_NEW)
+            for n in lens]
+
+
+def param_plan(model, cfg) -> dict:
+    """Parameter counts of an MLA + MoE config's parts (a deepseek-v3 cut),
+    reckoned from its shapes before anything is allocated; ``model`` is the
+    port's ``models.model``."""
+    d, h, m, mo = cfg.d_model, cfg.n_heads, cfg.mla, cfg.moe
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    attn = (d * m.q_lora_rank + m.q_lora_rank + m.q_lora_rank * h * qk
+            + d * m.kv_lora_rank + m.kv_lora_rank + d * m.qk_rope_head_dim
+            + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
+            + h * m.v_head_dim * d)
+    dense = 2 * d + attn + 3 * d * cfg.d_ff
+    experts = 3 * mo.n_experts * d * mo.d_expert
+    moe = (2 * d + attn + d * mo.n_experts + mo.n_experts
+           * mo.router_aux_free_bias + experts + 3 * d * mo.d_expert
+           * mo.n_shared)
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    return {"embed + unembed + final norm":
+                2 * model.vocab_padded(cfg) * d + d,
+            f"{cfg.first_k_dense} dense layer(s)": cfg.first_k_dense * dense,
+            f"{n_moe} MoE layer(s)": n_moe * moe,
+            "  of which routed experts": n_moe * experts,
+            "MTP layer + proj": (dense + 2 * d * d) if cfg.mtp else 0}
+
+
+def log_plan(tag, plan, bytes_per_param, what) -> int:
+    """Log the plan in GB at ``bytes_per_param`` and the card's free memory;
+    returns the parameter count."""
+    total = sum(n for part, n in plan.items() if not part.startswith(" "))
+    free, _ = torch.cuda.mem_get_info()
+    parts = ", ".join(f"{part.strip()} {n * bytes_per_param / 1e9:.2f} GB"
+                      for part, n in plan.items())
+    log(f"  {tag} plan ({what}, {bytes_per_param} B a parameter): {parts}; "
+        f"{total:,} params, {total * bytes_per_param / 1e9:.2f} GB in all, "
+        f"{free / 1e9:.2f} GB free on the card")
+    return total
+
+
+def serve_deepseek(main, lm):
+    """(a) served with its absorbed decode, and (b) naive on the same
+    params: the kernel against the plain version, absorbed against naive."""
+    cfg = dataclasses.replace(lm.get_config(DEEPSEEK), **DEEPSEEK_DEPTH)
+    log(f"[16 deepseek] depth cut: {cfg.first_k_dense} of the 3 dense layers "
+        f"and {cfg.n_layers - cfg.first_k_dense} of the 58 MoE layers (the "
+        f"published 61); widths as published (d {cfg.d_model}, {cfg.n_heads} "
+        f"heads, MLA {cfg.mla.q_lora_rank} / {cfg.mla.kv_lora_rank} / "
+        f"{cfg.mla.qk_nope_head_dim} + {cfg.mla.qk_rope_head_dim} / "
+        f"{cfg.mla.v_head_dim}, d_ff {cfg.d_ff}, {cfg.moe.n_experts} experts "
+        f"of {cfg.moe.d_expert} + {cfg.moe.n_shared} shared, top-"
+        f"{cfg.moe.top_k}, vocab {cfg.vocab})")
+    plan = param_plan(lm.M, cfg)
+    total = log_plan("(a)", plan, 4, "float32 params")
+    free, _ = torch.cuda.mem_get_info()
+    if total * 4 > free - 8e9:  # the cache, decode temporaries and profiler
+        raise AssertionError(f"(a) needs {total * 4 / 1e9:.2f} GB of params, "
+                             f"{free / 1e9:.2f} GB free")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = family_params(lm, cfg, "(a)", label="[16 deepseek]")
+    n = sum(p.numel() for p in params.parameters())
+    if n != total:
+        raise AssertionError(f"(a) drew {n:,} params, planned {total:,}")
+    reqs = deepseek_requests(cfg.vocab)
+    done, step_ms = family_serve(main, lm, params, cfg, DEEPSEEK, "(a)",
+                                 phase=16, requests=reqs)
+    if sorted(len(t) for _, t in done) != [DEEPSEEK_MAX_NEW] * len(reqs) or \
+            not all(0 <= x < cfg.vocab for _, t in done for x in t):
+        raise AssertionError(f"(a) served {[len(t) for _, t in done]} tokens")
+    toks = teacher_tokens(cfg.vocab)
+    cache = lm.M.init_cache(cfg, toks.shape[0], SERVE_CONFIG["max_len"],
+                            device="cuda")
+    lm.M.decode_step(params, cfg, cache, toks[:, :1], 0)
+    ops = profile(f"(a) {DEEPSEEK} decode_step (B=8, pos 1)",
+                  lambda: lm.M.decode_step(params, cfg, cache, toks[:, 1:2], 1),
+                  top=10)
+    busy = sum(ms for _, _, ms in ops)
+    gemm = sum(ms for key, _, ms in ops if "gemm" in key.lower())
+    log(f"  (a) profiled step: GEMM kernels {gemm:.3f} of {busy:.3f} busy ms "
+        + (f"({100 * gemm / busy:.1f} %); the routed experts' weights, "
+           f"{plan['  of which routed experts'] * 4 / 1e9:.2f} GB, are read "
+           f"every step (H12)" if busy else "(no device events: not "
+           "measured)"))
+    del cache
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  (a) peak device memory {(peak - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held")
+
+    naive = dataclasses.replace(cfg, mla_absorb=False)
+    done_naive, _ = family_serve(main, lm, params, naive, f"{DEEPSEEK}_naive",
+                                 "(b)", phase=16, requests=reqs)
+    naive_ref = dataclasses.replace(naive, attn_impl="ref")
+    done_ref, wall_ref, step_ref, margins = serve_once(
+        lm, params, naive_ref, record_margins=True, requests=reqs)
+    log(f"  (b) naive, plain: {sum(len(t) for _, t in done_ref)} tokens in "
+        f"{wall_ref:.3f} s; median decode step {float(np.median(step_ref)):.4f}"
+        f" ms; smallest top-2 logit margin {min(margins.values()):.4g}")
+    bad = differing_tokens(DEEPSEEK, done_naive, done_ref)
+    if bad:
+        log(f"  (b) {len(bad)} requests differ from the plain run")
+        explain_flips(lm, params, naive, naive_ref, bad, margins, requests=reqs)
+    else:
+        log(f"  (b) naive tokens equal on kernel and plain for all "
+            f"{len(done_naive)} requests")
+    same = sum(a == b for (_, x), (_, y) in zip(done, done_naive)
+               for a, b in zip(x, y))
+    log(f"  (b) the absorbed serve agrees with the naive one on {same} of "
+        f"{sum(len(t) for _, t in done)} tokens")
+    out = teacher_forced_check(lm, params, cfg, naive, toks,
+                               "absorbed vs naive on the kernel", "(b) ")
+    del params, out
+    # a served engine's patched methods form reference cycles that hold
+    # the params until a collection
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_deepseek(main, tm, held):
+    """(c): 1 dense + 1 MoE layer + the MTP head at the published widths,
+    the routed experts cut to 16, B 2 x S 512 (B 1 if the plan does not
+    fit), 5 steps."""
+    base = tm.get_config(DEEPSEEK)
+    cfg = dataclasses.replace(base, **DEEPSEEK_DEPTH, moe=dataclasses.replace(
+        base.moe, n_experts=DEEPSEEK_TRAIN_EXPERTS))
+    log(f"[16 deepseek] (c) expert cut: {base.moe.n_experts} -> "
+        f"{DEEPSEEK_TRAIN_EXPERTS} routed experts (top-{cfg.moe.top_k} and "
+        f"the shared expert kept): at 16 B a parameter the "
+        f"{base.moe.n_experts} experts' AdamW state alone is "
+        f"{3 * base.moe.n_experts * base.d_model * base.moe.d_expert * 16 / 1e9:.1f}"
+        f" GB")
+    total = log_plan("(c)", param_plan(tm.M, cfg), 16,
+                     "params, grads, AdamW m and v")
+    free, _ = torch.cuda.mem_get_info()
+    shape = TRAIN_SHAPE[DEEPSEEK]
+    if total * 16 + TRAIN_ROOM_GB * 1e9 > free:
+        shape = (1, shape[1])
+        log(f"  (c) the plan leaves less than {TRAIN_ROOM_GB} GB for "
+            f"activations: B 1")
+    return train_family(main, tm, DEEPSEEK, "(c)", held, cfg=cfg, shape=shape,
+                        phase=16, label="[16 deepseek]")
+
+
+def deepseek_kernel_times(fa_ops, fa_ref):
+    """(d): flash_attention at deepseek-v3's training prefill and naive
+    decode (QK 192 / V 128, read in place), checked and timed as phase 15
+    (e) times its shapes; ptxas's figures for the MLA instances beside the
+    dynamic shared memory of these launches."""
+    gen = torch.Generator("cuda").manual_seed(16)
+    b, s = TRAIN_SHAPE[DEEPSEEK]
+    mla = dict(nope=128, rope=64, dv=128)
+    cases = {
+        "flash_attention_deepseek_train": (
+            mla_inputs(gen, b, 128, s, s, **mla), {},
+            f"deepseek-v3 training prefill B={b} H=128 S={s} D=192 V=128 "
+            f"causal float32 (read in place)"),
+        "flash_attention_deepseek_decode": (
+            mla_inputs(gen, 8, 128, 1, 512, **mla),
+            dict(q_offset=93, kv_len=94), "deepseek-v3 naive decode B=8 "
+            "H=128 D=192 V=128 Skv=512 kv_len=94 (read in place)"),
+    }
+    err, tim = 0.0, {}
+    for name, ((q, k, v), kw, shape) in cases.items():
+        e, tim[name] = time_flash_case(fa_ops, fa_ref, name, q, k, v, kw,
+                                       shape)
+        err = max(err, e)
+    lib = fa_ops.library()
+    ptxas_report(lib, ("Li96ELi64E", "Li192ELi128E"), {
+        f"{what} {d}/{dv}": lib.lib.flash_attention_smem(h, h, sq, d, dv, 0)
+        for what, sq in (("decode", 1), ("prefill", 512))
+        for h, d, dv in ((40, 96, 64), (128, 192, 128))})
+    return err, tim
+
+
+def phase_deepseek(main, fa_ops, fa_ref, stores):
+    """Phase 16: deepseek-v3 at its published widths, (a)-(d)."""
+    free_earlier_phases(stores)
+    held = torch.cuda.memory_allocated()
+    log(f"[16 deepseek] device memory held at the start: "
+        f"{held / 2**30:.3f} GiB")
+    lm, tm, parts = lm_modules(), train_modules(), {}
+    t0 = time.perf_counter()
+    serve_deepseek(main, lm)
+    parts["a+b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_deepseek(main, tm, held)
+    parts["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("[16 deepseek] (d) flash_attention at this phase's shapes")
+    err, tim = deepseek_kernel_times(fa_ops, fa_ref)
+    parts["d"] = time.perf_counter() - t0
+    log(f"  phase 16 parts (s): { {k: round(v, 1) for k, v in parts.items()} }")
+    return err, tim
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+    parser.add_argument("--phases",
+                        default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                         help="comma-separated phase numbers to run")
     parser.add_argument("--scale", type=float, default=1.0,
                         help="common factor on the scale graph's (and the "
@@ -4295,6 +4584,15 @@ def main(argv=None) -> int:
         timings.update(tim)
         log(f"  phase 15: {time.perf_counter() - t0:.1f} s, launches "
             f"{ {path: c for (n, path), c in main.counts.items() if n == 15} }")
+    if 16 in phases:
+        main.phase = 16
+        t0 = time.perf_counter()
+        err, tim = phase_deepseek(main, fa_ops, fa_ref, stores)
+        max_err["flash_attention"] = max(max_err.get("flash_attention", 0.0),
+                                         err)
+        timings.update(tim)
+        log(f"  phase 16: {time.perf_counter() - t0:.1f} s, launches "
+            f"{ {path: c for (n, path), c in main.counts.items() if n == 16} }")
     launches = {k: sum(c[k] for c in main.counts.values()) for k in main.read()}
     if 8 in phases:
         log(f"[8 counts] main-path launches per (phase, path): {main.counts}; "
@@ -4341,7 +4639,9 @@ def main(argv=None) -> int:
                     (15, "qwen3-moe-30b-a3b"): ("flash_attention",),
                     (15, "qwen3-moe-30b-a3b_train"): ("flash_attention",),
                     (15, "minicpm3-4b_naive"): ("flash_attention",),
-                    (15, "minicpm3-4b_train"): ("flash_attention",)}
+                    (15, "minicpm3-4b_train"): ("flash_attention",),
+                    (16, "deepseek-v3-671b_naive"): ("flash_attention",),
+                    (16, "deepseek-v3-671b_train"): ("flash_attention",)}
         for (num, entry), names in required.items():
             for name in names:
                 if num in phases and main.counts[(num, entry)][name] == 0:
@@ -4354,9 +4654,10 @@ def main(argv=None) -> int:
                 raise AssertionError(f"phase {num}'s {entry} launched "
                                      "cni_encode")
         # the absorbed MLA decode attends in the latent space, in torch
-        if 15 in phases and main.counts[(15, "minicpm3-4b")]["flash_attention"]:
-            raise AssertionError("phase 15's absorbed minicpm3-4b serve "
-                                 "launched flash_attention")
+        for num, entry in ((15, "minicpm3-4b"), (16, "deepseek-v3-671b")):
+            if num in phases and main.counts[(num, entry)]["flash_attention"]:
+                raise AssertionError(f"phase {num}'s absorbed {entry} serve "
+                                     f"launched flash_attention")
     if 3 in phases:
         timings["candidate_filter"] = timings["candidate_filter_exact"]
         kernels = []

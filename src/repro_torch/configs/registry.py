@@ -2,10 +2,11 @@
 from the reference, and ``get_config(name)`` / ``--arch <id>``.
 
 The port serves and trains the dense GQA (``granite-*``,
-``starcoder2-15b``), MLA (``minicpm3-4b``), MoE (``qwen3-moe-30b-a3b``) and
-RWKV (``rwkv6-7b``) families; building the params or cache of another
-config (deepseek-v3's first_k_dense stack and MTP head, hybrid, encdec,
-vlm) raises ``NotImplementedError`` naming its ROADMAP item.
+``starcoder2-15b``), MLA (``minicpm3-4b``), MoE (``qwen3-moe-30b-a3b``),
+MoE with MLA, a first_k_dense stack and an MTP head
+(``deepseek-v3-671b``) and RWKV (``rwkv6-7b``) families; building the
+params or cache of another config (hybrid, encdec, vlm) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations

@@ -2,9 +2,12 @@
 
 ``mha_plain`` is the materializing masked softmax of the reference's
 ``kernels/flash_attention/ref.py::mha_ref``, plus the ``kv_len`` pad mask of
-the Pallas kernel: scores in float32, masked to -1e30 where a key is past
-``kv_len``, in the future of a causal query, or outside the sliding
-``window``, then softmax and the weighted sum of V, cast to ``q.dtype``.
+the Pallas kernel: scores in float32 at scale 1/sqrt(D) (q's width), masked
+to -1e30 where a key is past ``kv_len``, in the future of a causal query, or
+outside the sliding ``window``, then softmax and the weighted sum of V,
+cast to ``q.dtype``.  V may be narrower than q and k (MLA's head): the
+output takes V's width, the first columns of the reference's output on V
+padded to q's width.
 GQA maps query head ``h`` to KV head ``h // (Hq / Hkv)``.  It runs on any
 device: the CPU tests use it, and the card compares the kernel with it.
 """
@@ -36,7 +39,8 @@ def visible_mask(sq: int, skv: int, *, causal: bool = True, window=None,
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window=None, q_offset: int = 0,
               kv_len=None) -> torch.Tensor:
-    """(B, Hq, Sq, D) x (B, Hkv, Skv, D)^2 -> (B, Hq, Sq, D) in q.dtype."""
+    """(B, Hq, Sq, D) x (B, Hkv, Skv, D) x (B, Hkv, Skv, Dv) -> (B, Hq, Sq,
+    Dv) in q.dtype."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -60,7 +64,7 @@ def mha_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     keys a row may see (a chunk that sees none has m = -1e30, l = 0), and
     the chunks merge in order with the log-sum-exp rescale, a chunk with
     l = 0 at weight 0.  A row that sees no key at all comes out 0.
-    Returns (B, Hq, Sq, D) in q.dtype."""
+    Returns (B, Hq, Sq, Dv) in q.dtype."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -85,7 +89,7 @@ def mha_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     seen = [torch.where(l > 0, m, torch.full_like(m, NEG_INF)) for m, l, _ in parts]
     top = torch.stack(seen).amax(0)
     total_l = torch.zeros_like(top)
-    total = torch.zeros(b, hq, sq, d, device=q.device)
+    total = torch.zeros(b, hq, sq, v.shape[3], device=q.device)
     for m, l, acc in parts:  # fixed order
         w = torch.where(l > 0, torch.exp(m - top), torch.zeros_like(m))
         total_l = total_l + l * w

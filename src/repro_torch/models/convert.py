@@ -4,7 +4,11 @@ and the port's.
 The reference keeps params as a pytree with the layer weights stacked on a
 leading axis (``tree["layers"]["attn"]["wq"]`` is (L, d, h, hd)); the port
 keeps one module per layer in the same per-layer layout, named as
-``LM.named_parameters()`` names them (``"layers.3.attn.wq"``).  The
+``LM.named_parameters()`` names them (``"layers.3.attn.wq"``).  Two stacks
+are stacked so: ``layers`` and, with ``first_k_dense``, ``dense_layers``
+(``"dense_layers.0.ffn.w_gate"``); the MTP head's one layer, ``mtp_layer``,
+is an unstacked subtree in both (``"mtp_layer.attn.wq"`` is
+``tree["mtp_layer"]["attn"]["wq"]``), beside the top-level ``mtp_proj``.  The
 ``*_from_numpy`` functions take the tree with numpy (or array-like)
 leaves, e.g. ``jax.tree.map(np.asarray, params)``, and copy it to
 ``device`` (None means CUDA); the ``*_to_numpy`` functions give that tree
@@ -31,15 +35,30 @@ _LAYER_KEYS = {"dense": {"norm1", "norm2", "attn", "ffn"},
                "rwkv": {"norm1", "norm2", "rwkv"}}
 
 
+def _stacks(cfg: ModelConfig) -> dict[str, tuple[str, int]]:
+    """The stacked layer trees: name -> (layer kind, depth)."""
+    out = {}
+    if cfg.first_k_dense:
+        out["dense_layers"] = ("dense", cfg.first_k_dense)
+    out["layers"] = (model_kind(cfg), cfg.n_layers - cfg.first_k_dense)
+    return out
+
+
 def _tensor(a, dev) -> torch.Tensor:
     return torch.tensor(np.asarray(a), device=dev)
 
 
-def _module(cls, tree: dict, i: int, dev):
-    return cls(**{name: _tensor(tree[name][i], dev) for name in cls.NAMES})
+def _at(a, i):
+    """Layer ``i`` of a stacked leaf, or the leaf itself when ``i`` is None
+    (an unstacked layer tree)."""
+    return a if i is None else a[i]
 
 
-def _moe(cfg: ModelConfig, tree: dict, i: int, dev) -> MoE:
+def _module(cls, tree: dict, i, dev):
+    return cls(**{name: _tensor(_at(tree[name], i), dev) for name in cls.NAMES})
+
+
+def _moe(cfg: ModelConfig, tree: dict, i, dev) -> MoE:
     """Layer ``i``'s MoE FFN; ``router_bias`` and the ``shared`` SwiGLU are
     there exactly when the config asks for them."""
     mo = cfg.moe
@@ -48,46 +67,63 @@ def _moe(cfg: ModelConfig, tree: dict, i: int, dev) -> MoE:
     if set(tree) != want:
         raise ValueError(f"{cfg.name}: expected ffn keys {sorted(want)}, got "
                          f"{sorted(tree)}")
-    return MoE(**{name: _tensor(tree[name][i], dev) for name in MoE.NAMES},
-               router_bias=(_tensor(tree["router_bias"][i], dev)
+    return MoE(**{name: _tensor(_at(tree[name], i), dev) for name in MoE.NAMES},
+               router_bias=(_tensor(_at(tree["router_bias"], i), dev)
                             if mo.router_aux_free_bias else None),
                shared=(_module(SwiGLU, tree["shared"], i, dev)
                        if mo.n_shared else None))
 
 
+def _layer(cfg: ModelConfig, kind: str, lt: dict, i, dev, where: str) -> Layer:
+    """One ``Layer`` of ``kind`` from the layer tree ``lt`` (layer ``i`` of
+    a stack, or the whole tree when ``i`` is None)."""
+    if set(lt) != _LAYER_KEYS[kind]:
+        raise ValueError(f"{cfg.name}: expected {where} keys "
+                         f"{sorted(_LAYER_KEYS[kind])}, got {sorted(lt)}")
+    norms = _tensor(_at(lt["norm1"], i), dev), _tensor(_at(lt["norm2"], i), dev)
+    if kind == "rwkv":
+        return Layer(*norms, rwkv=_module(RWKV6, lt["rwkv"], i, dev))
+    attn = _module(MLA if cfg.mla is not None else GQA, lt["attn"], i, dev)
+    ffn = (_moe(cfg, lt["ffn"], i, dev) if kind == "moe"
+           else _module(SwiGLU, lt["ffn"], i, dev))
+    return Layer(*norms, attn=attn, ffn=ffn)
+
+
+def _top_keys(cfg: ModelConfig) -> set:
+    return ({"embed", "final_norm"} | set(_stacks(cfg))
+            | (set() if cfg.tie_embeddings else {"unembed"})
+            | ({"mtp_layer", "mtp_proj"} if cfg.mtp else set()))
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> LM:
     """The reference's ``init_params`` tree -> the port's ``LM`` (a moe
     layer's ``ffn`` holds the nested ``shared`` tree and the optional
-    ``router_bias``)."""
-    kind = model_kind(cfg)
+    ``router_bias``; deepseek-v3's ``dense_layers``, ``mtp_layer`` and
+    ``mtp_proj`` come across beside ``layers``)."""
     dev = resolve_device(device)
-    top = {"embed", "layers", "final_norm"} | (
-        set() if cfg.tie_embeddings else {"unembed"})
-    if set(tree) != top or set(tree["layers"]) != _LAYER_KEYS[kind]:
-        raise ValueError(f"{cfg.name}: expected keys {sorted(top)} with layer "
-                         f"keys {sorted(_LAYER_KEYS[kind])}, got {sorted(tree)} "
-                         f"and {sorted(tree.get('layers', {}))}")
-    lt = tree["layers"]
-    layers = []
-    for i in range(cfg.n_layers):
-        norms = _tensor(lt["norm1"][i], dev), _tensor(lt["norm2"][i], dev)
-        if kind == "rwkv":
-            layers.append(Layer(*norms, rwkv=_module(RWKV6, lt["rwkv"], i, dev)))
-        else:
-            attn = _module(MLA if cfg.mla is not None else GQA, lt["attn"], i,
-                           dev)
-            ffn = (_moe(cfg, lt["ffn"], i, dev) if kind == "moe"
-                   else _module(SwiGLU, lt["ffn"], i, dev))
-            layers.append(Layer(*norms, attn=attn, ffn=ffn))
-    return LM(_tensor(tree["embed"], dev), layers,
+    top = _top_keys(cfg)
+    if set(tree) != top:
+        raise ValueError(f"{cfg.name}: expected keys {sorted(top)}, got "
+                         f"{sorted(tree)}")
+    stacks = {name: [_layer(cfg, kind, tree[name], i, dev, name)
+                     for i in range(n)]
+              for name, (kind, n) in _stacks(cfg).items()}
+    mtp = {}
+    if cfg.mtp:
+        mtp = dict(mtp_layer=_layer(cfg, "dense", tree["mtp_layer"], None, dev,
+                                    "mtp_layer"),
+                   mtp_proj=_tensor(tree["mtp_proj"], dev))
+    return LM(_tensor(tree["embed"], dev), stacks["layers"],
               _tensor(tree["final_norm"], dev),
-              None if cfg.tie_embeddings else _tensor(tree["unembed"], dev))
+              None if cfg.tie_embeddings else _tensor(tree["unembed"], dev),
+              dense_layers=stacks.get("dense_layers", ()), **mtp)
 
 
 def cache_from_numpy(tree, device=None):
     """The reference's ``init_cache`` tree (or one a decode returned) -> the
     port's cache: the same nested dict (GQA's k/v, MLA's ckv/k_rope or
-    RWKV's states), each leaf a tensor."""
+    RWKV's states, under ``layers`` and, with a first_k_dense stack,
+    ``dense_layers``), each leaf a tensor."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {name: cache_from_numpy(t, dev) for name, t in tree.items()}
@@ -98,36 +134,46 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _host_leaf(leaf):
+    return tuple(_host(x) for x in leaf) if isinstance(leaf, tuple) \
+        else _host(leaf)
+
+
+def _nest(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
 def state_to_numpy(cfg: ModelConfig, named: dict) -> dict:
-    """A dict keyed like the params -> the reference's stacked tree, numpy
-    leaves; a tuple leaf stays a tuple of stacked arrays."""
+    """A dict keyed like the params -> the reference's tree, numpy leaves:
+    the layers of each stack stacked, ``mtp_layer`` nested unstacked; a
+    tuple leaf stays a tuple of (stacked) arrays."""
     tree: dict = {}
     stacks: dict = {}
+    depth = {name: n for name, (_, n) in _stacks(cfg).items()}
     for name, leaf in named.items():
         parts = name.split(".")
-        if parts[0] != "layers":
-            tree[name] = (tuple(_host(x) for x in leaf)
-                          if isinstance(leaf, tuple) else _host(leaf))
-            continue
-        stacks.setdefault(tuple(parts[2:]), {})[int(parts[1])] = leaf
-    for path, by_layer in stacks.items():
-        if sorted(by_layer) != list(range(cfg.n_layers)):
-            raise ValueError(f"{cfg.name}: layers {sorted(by_layer)} of "
-                             f"{'.'.join(path)}, expected {cfg.n_layers}")
-        leaves = [by_layer[i] for i in range(cfg.n_layers)]
-        node = tree.setdefault("layers", {})
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = (
+        if parts[0] in depth:
+            stacks.setdefault((parts[0], tuple(parts[2:])), {})[
+                int(parts[1])] = leaf
+        else:
+            _nest(tree, parts, _host_leaf(leaf))
+    for (stack, path), by_layer in stacks.items():
+        if sorted(by_layer) != list(range(depth[stack])):
+            raise ValueError(f"{cfg.name}: {stack} {sorted(by_layer)} of "
+                             f"{'.'.join(path)}, expected {depth[stack]}")
+        leaves = [by_layer[i] for i in range(depth[stack])]
+        _nest(tree, (stack,) + path, (
             tuple(np.stack([_host(x) for x in part]) for part in zip(*leaves))
             if isinstance(leaves[0], tuple)
-            else np.stack([_host(x) for x in leaves]))
+            else np.stack([_host(x) for x in leaves])))
     return tree
 
 
 def state_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
-    """The inverse of ``state_to_numpy``: the reference's stacked tree ->
-    a dict keyed like the params (``LM.named_parameters()`` order)."""
+    """The inverse of ``state_to_numpy``: the reference's tree -> a dict
+    keyed like the params (``LM.named_parameters()`` order)."""
     dev = resolve_device(device)
 
     def leaf(a, i=None):
@@ -135,28 +181,32 @@ def state_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
             return tuple(leaf(x, i) for x in a)
         return _tensor(a if i is None else np.asarray(a)[i], dev)
 
-    def layer_items(node, prefix):
-        for key in sorted(node):
-            if isinstance(node[key], dict):
-                yield from layer_items(node[key], prefix + (key,))
-            else:
-                yield prefix + (key,), node[key]
+    def layer_leaf(node, path):
+        for key in path:
+            node = node[key]
+        return node
 
-    layer_leaves = dict(layer_items(tree["layers"], ()))
+    # the LM's own tensors first, then its modules, as named_parameters
     named = {"embed": leaf(tree["embed"]),
              "final_norm": leaf(tree["final_norm"])}
     if not cfg.tie_embeddings:
         named["unembed"] = leaf(tree["unembed"])
-    for i in range(cfg.n_layers):
-        for path in _layer_names(cfg):
-            named[".".join(("layers", str(i)) + path)] = leaf(
-                layer_leaves[path], i)
+    if cfg.mtp:
+        named["mtp_proj"] = leaf(tree["mtp_proj"])
+    for stack, (kind, n) in _stacks(cfg).items():
+        for i in range(n):
+            for path in _layer_names(cfg, kind):
+                named[".".join((stack, str(i)) + path)] = leaf(
+                    layer_leaf(tree[stack], path), i)
+    if cfg.mtp:
+        for path in _layer_names(cfg, "dense"):
+            named[".".join(("mtp_layer",) + path)] = leaf(
+                layer_leaf(tree["mtp_layer"], path))
     return named
 
 
-def _layer_names(cfg: ModelConfig) -> list[tuple[str, ...]]:
-    """One layer's parameter paths in ``named_parameters`` order."""
-    kind = model_kind(cfg)
+def _layer_names(cfg: ModelConfig, kind: str) -> list[tuple[str, ...]]:
+    """One ``kind`` layer's parameter paths in ``named_parameters`` order."""
     norms = [("norm1",), ("norm2",)]
     if kind == "rwkv":
         return norms + [("rwkv", n) for n in RWKV6.NAMES]
@@ -178,13 +228,18 @@ def params_to_numpy(cfg: ModelConfig, lm: LM) -> dict:
     return state_to_numpy(cfg, dict(lm.named_parameters()))
 
 
+STACKED = ("layers", "dense_layers")
+
+
 def stacked_groups(names) -> list[list[str]]:
     """Param names grouped by the reference's stacked leaf they slice
-    (``"layers.0.attn.wq"`` and ``"layers.1.attn.wq"`` together), in first
-    appearance order: what a per-tensor statistic of the reference spans."""
+    (``"layers.0.attn.wq"`` and ``"layers.1.attn.wq"`` together, and so
+    for ``dense_layers``), in first appearance order: what a per-tensor
+    statistic of the reference spans.  Every other name, ``mtp_layer``'s
+    unstacked leaves too, is a group of its own."""
     groups: dict = {}
     for name in names:
         parts = name.split(".")
-        key = ".".join(parts[:1] + parts[2:]) if parts[0] == "layers" else name
+        key = ".".join(parts[:1] + parts[2:]) if parts[0] in STACKED else name
         groups.setdefault(key, []).append(name)
     return list(groups.values())

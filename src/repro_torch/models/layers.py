@@ -17,8 +17,8 @@ Attention maths (``attention_math``), by the config's ``attn_impl``:
   * ``xla_flash``         — the reference's XLA-only ``lax.scan``
     formulation; the port raises ``ValueError``.
 
-MLA's naive path and its prefill go through ``attention_math`` (the head
-dim is qk_nope + qk_rope, V padded to it); its absorbed decode and the
+MLA's naive path and its prefill go through ``attention_math`` (q and k
+qk_nope + qk_rope wide, V at v_head_dim); its absorbed decode and the
 MoE dispatch are plain torch, as they are plain ``jnp`` in the reference,
 which has no Pallas kernel for either.
 """
@@ -106,8 +106,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0):
 
 def attention_math(q, k, v, impl: str, *, causal: bool = True, window=None,
                    q_offset: int = 0, kv_len=None) -> torch.Tensor:
-    """(B, Hq, Sq, D) x (B, Hkv, Skv, D)^2 -> (B, Hq, Sq, D).  Unlike the
-    reference's kernel branch (ROADMAP C7), ``kv_len`` reaches every impl."""
+    """(B, Hq, Sq, D) x (B, Hkv, Skv, D) x (B, Hkv, Skv, Dv) -> (B, Hq, Sq,
+    Dv), Dv <= D.  Unlike the reference's kernel branch (ROADMAP C7),
+    ``kv_len`` reaches every impl."""
     if impl in ("auto", "kernel"):
         return flash_ops.flash_attention(q, k, v, causal, window, q_offset,
                                          kv_len)
@@ -229,8 +230,9 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ModelConfig, *, positions=None,
     it).  ``cfg.mla_absorb`` decodes in the latent space
     (``_mla_absorbed_decode``); otherwise the cached latents are expanded
     to per-head K and V, the rope key is broadcast over the heads and
-    concatenated, V is padded to the QK width and one ``attention_math``
-    call serves them."""
+    concatenated, and one ``attention_math`` call takes V at its own width
+    (the reference pads V to the QK width and cuts the output back: the
+    same first v_head_dim columns)."""
     m = cfg.mla
     b, sq, d = x.shape
     nope = m.qk_nope_head_dim
@@ -267,11 +269,8 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ModelConfig, *, positions=None,
     k_full = torch.cat([k_nope, k_rope_all.expand(
         b, cfg.n_heads, skv, m.qk_rope_head_dim)], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
-    # pad V's head dim up to the QK dim so one attention call serves both
-    v_pad = F.pad(v, (0, q_full.shape[-1] - m.v_head_dim))
-    out = attention_math(q_full, k_full, v_pad, impl, causal=causal,
-                         window=cfg.window, q_offset=q_offset,
-                         kv_len=kv_len)[..., : m.v_head_dim]
+    out = attention_math(q_full, k_full, v, impl, causal=causal,
+                         window=cfg.window, q_offset=q_offset, kv_len=kv_len)
     return torch.einsum("bhsk,hkd->bsd", out, p.wo), cache
 
 

@@ -19,10 +19,14 @@ Families: dense (GQA attention, or MLA where ``cfg.mla`` is set), moe (the
 same attention with the routed-expert FFN) and rwkv.  A moe layer's
 ``dropped_frac`` passes out of the remat wrapper beside the hidden state,
 and ``forward``'s aux ``moe_dropped`` is its sum over the layers, as the
-reference's scan sums it.  Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: deepseek-v3's
-``first_k_dense`` stack and MTP head (A12 (b) 3), hybrid (A12 (b) 4),
-encdec (A12 (b) 5) and vlm (A12 (b) 6).
+reference's scan sums it.  deepseek-v3's extras: ``cfg.first_k_dense``
+leading dense layers (a SwiGLU at ``cfg.d_ff``) in ``dense_layers`` ahead
+of the ``n_layers - first_k_dense`` main layers, and with ``cfg.mtp`` the
+multi-token-prediction head (``mtp_proj`` and one dense ``mtp_layer``),
+whose logits ``forward`` returns as aux ``mtp_logits`` and whose loss
+``loss_fn`` adds at weight 0.3; the head is a training one and never
+decodes.  Not ported yet, each raising ``NotImplementedError`` naming its
+ROADMAP item: hybrid (A12 (b) 4), encdec (A12 (b) 5) and vlm (A12 (b) 6).
 """
 
 from __future__ import annotations
@@ -48,15 +52,13 @@ def vocab_padded(cfg: ModelConfig) -> int:
 
 _NOT_PORTED = {"hybrid": "A12 (b) 4", "encdec": "A12 (b) 5",
                "vlm": "A12 (b) 6"}
+MTP_WEIGHT = 0.3  # the MTP loss's weight in the total, as the reference's
 
 
 def model_kind(cfg: ModelConfig) -> str:
-    """"dense" (GQA or MLA attention), "moe" or "rwkv"; what is not ported
-    yet raises, naming its ROADMAP item."""
-    if cfg.first_k_dense or cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: the first_k_dense layer stack and the MTP head are "
-            f"not ported yet (ROADMAP item A12 (b) 3, deepseek-v3)")
+    """"dense" (GQA or MLA attention), "moe" or "rwkv": the kind of the
+    main stack (a ``first_k_dense`` stack and the MTP layer are "dense");
+    what is not ported yet raises, naming its ROADMAP item."""
     if cfg.family in ("dense", "moe", "rwkv"):
         return cfg.family
     raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not "
@@ -77,17 +79,23 @@ class Layer(nn.Module):
 
 
 class LM(nn.Module):
-    """The params of one model: ``embed`` (V_pad, d), ``layers``,
-    ``final_norm`` and, unless the embeddings are tied, ``unembed``
-    (d, V_pad)."""
+    """The params of one model: ``embed`` (V_pad, d), ``dense_layers`` (the
+    ``first_k_dense`` stack, empty without one), ``layers``, ``final_norm``,
+    unless the embeddings are tied ``unembed`` (d, V_pad), and with an MTP
+    head ``mtp_layer`` (one dense ``Layer``) and ``mtp_proj`` (2d, d)."""
 
-    def __init__(self, embed, layers, final_norm, unembed=None):
+    def __init__(self, embed, layers, final_norm, unembed=None, *,
+                 dense_layers=(), mtp_layer=None, mtp_proj=None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
+        self.dense_layers = nn.ModuleList(dense_layers)
         self.layers = nn.ModuleList(layers)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.unembed = (None if unembed is None
                         else nn.Parameter(unembed, requires_grad=False))
+        self.mtp_layer = mtp_layer
+        self.mtp_proj = (None if mtp_proj is None
+                         else nn.Parameter(mtp_proj, requires_grad=False))
 
     @property
     def device(self) -> torch.device:
@@ -119,12 +127,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         raise ValueError(f"generator on {generator.device}, params on {dev}")
     vp = vocab_padded(cfg)
     embed = L.dense_init(generator, (vp, cfg.d_model), 1, dtype)
+    dense = [_layer_init(generator, cfg, "dense", dtype)
+             for _ in range(cfg.first_k_dense)]
     layers = [_layer_init(generator, cfg, kind, dtype)
-              for _ in range(cfg.n_layers)]
+              for _ in range(cfg.n_layers - cfg.first_k_dense)]
     final_norm = L.zeros_init((cfg.d_model,), dtype, generator.device, 1.0)
     unembed = (None if cfg.tie_embeddings
                else L.dense_init(generator, (cfg.d_model, vp), 0, dtype))
-    return LM(embed, layers, final_norm, unembed)
+    mtp = {}
+    if cfg.mtp:
+        mtp = dict(mtp_layer=_layer_init(generator, cfg, "dense", dtype),
+                   mtp_proj=L.dense_init(generator, (2 * cfg.d_model,
+                                                     cfg.d_model), 0, dtype))
+    return LM(embed, layers, final_norm, unembed, dense_layers=dense, **mtp)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -133,21 +148,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     reference's: GQA ``{"layers": {"attn": {"k", "v"}}}`` with k/v (L, B,
     Hkv, max_len, hd); MLA ``{"layers": {"attn": {"ckv", "k_rope"}}}`` with
     (L, B, max_len, kv_lora_rank) and (L, B, max_len, qk_rope_head_dim);
-    RWKV ``{"layers": {"wkv", "tm_prev", "cm_prev"}}``.  ``device=None``
-    means CUDA."""
+    RWKV ``{"layers": {"wkv", "tm_prev", "cm_prev"}}``.  With a
+    ``first_k_dense`` stack, ``"layers"`` holds the main stack's
+    ``n_layers - first_k_dense`` and ``"dense_layers"`` the dense stack's
+    (the same per-layer tree).  ``device=None`` means CUDA."""
     kind = model_kind(cfg)
     dev = resolve_device(device)
-    n = cfg.n_layers
-
-    def stacked(t):
-        return torch.zeros((n, *t.shape), dtype=t.dtype, device=dev)
-
     if kind == "rwkv":
         one = S.rwkv6_state_init(cfg, batch, dtype, "meta")
-        return {"layers": {name: stacked(t) for name, t in one.items()}}
-    cache_init = L.mla_cache_init if cfg.mla is not None else L.gqa_cache_init
-    one = cache_init(cfg, batch, max_len, dtype, "meta")
-    return {"layers": {"attn": {name: stacked(t) for name, t in one.items()}}}
+    else:
+        cache_init = (L.mla_cache_init if cfg.mla is not None
+                      else L.gqa_cache_init)
+        one = {"attn": cache_init(cfg, batch, max_len, dtype, "meta")}
+
+    def stacked(tree, n):
+        if isinstance(tree, dict):
+            return {name: stacked(t, n) for name, t in tree.items()}
+        return torch.zeros((n, *tree.shape), dtype=tree.dtype, device=dev)
+
+    out = {"layers": stacked(one, cfg.n_layers - cfg.first_k_dense)}
+    if cfg.first_k_dense:
+        out["dense_layers"] = stacked(one, cfg.first_k_dense)
+    return out
 
 
 def _layer_cache(tree, i: int):
@@ -245,23 +267,27 @@ def forward(params: LM, cfg: ModelConfig, tokens, *, last_only: bool = False,
             return_hidden: bool = False):
     """Training/prefill forward: tokens (B, S) -> (logits (B, S|1, V_pad)
     float32, aux), or with ``return_hidden`` the final-normed hidden state
-    (B, S|1, d) in the logits' place (the chunked CE's input).  Grads flow
-    when grad mode is on and the params require them."""
+    (B, S|1, d) in the logits' place (the chunked CE's input).  ``aux``:
+    ``moe_dropped`` and, with an MTP head and neither ``last_only`` nor
+    ``return_hidden``, ``mtp_logits`` (B, S, V_pad).  Grads flow when grad
+    mode is on and the params require them."""
     kind = model_kind(cfg)
     impl = L.resolve_attn_impl(cfg)
     x = _embed(params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
 
-    def layer_fn(layer, h):
-        out, dropped = _layer_apply(layer, h, cfg, kind, impl=impl,
+    def layer_fn(layer_kind, layer, h):
+        out, dropped = _layer_apply(layer, h, cfg, layer_kind, impl=impl,
                                     positions=positions)
         return out.to(h.dtype), dropped
 
     dropped = []
-    for layer in params.layers:
-        x, layer_dropped = _rematted(cfg, layer_fn, layer, x)
-        if layer_dropped is not None:
-            dropped.append(layer_dropped)
+    for layer_kind, stack in (("dense", params.dense_layers),
+                              (kind, params.layers)):
+        for layer in stack:
+            x, layer_dropped = _rematted(cfg, layer_fn, layer_kind, layer, x)
+            if layer_dropped is not None:
+                dropped.append(layer_dropped)
     h = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     if last_only:
         h = h[:, -1:]
@@ -269,7 +295,35 @@ def forward(params: LM, cfg: ModelConfig, tokens, *, last_only: bool = False,
     aux = {"moe_dropped": torch.stack(dropped).sum() if dropped else 0.0}
     if return_hidden:
         return h, aux
+    if cfg.mtp and not last_only:  # MTP is a training-time head
+        aux["mtp_logits"] = _logits(params, cfg, _mtp_hidden(
+            params, cfg, h, tokens, impl, positions))
     return _logits(params, cfg, h), aux
+
+
+def _mtp_hidden(params: LM, cfg: ModelConfig, h, tokens, impl, positions):
+    """DeepSeek-style MTP trunk, predicting token t + 2 from the final-normed
+    ``h_t`` and the embedding of token t + 1 (zero at the last position):
+    ``[h; emb(t + 1)] @ mtp_proj``, one dense layer (no remat, as the
+    reference's), then ``final_norm`` again."""
+    emb = _embed(params, tokens)
+    emb_next = torch.cat([emb[:, 1:], torch.zeros_like(emb[:, :1])], dim=1)
+    mtp_in = torch.cat([h, emb_next], dim=-1) @ params.mtp_proj
+    mtp_h, _ = _layer_apply(params.mtp_layer, mtp_in, cfg, "dense", impl=impl,
+                            positions=positions)
+    return L.rms_norm(mtp_h, params.final_norm, cfg.norm_eps)
+
+
+def _shifted_labels(labels: torch.Tensor) -> torch.Tensor:
+    """The MTP head's labels: each position's label one step on, the last
+    position masked (-1)."""
+    return torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)],
+                     dim=1)
+
+
+def _masked_mean_nll(lse, gold, labels) -> torch.Tensor:
+    mask = (labels >= 0).float()
+    return ((lse - gold) * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 def _ce_chunk(m_run, s_run, gold, h, w_c, lab, start: int, vocab: int):
@@ -313,37 +367,61 @@ def _chunked_ce(params: LM, cfg: ModelConfig, h: torch.Tensor, labels):
     return m + torch.log(s_sum.clamp_min(1e-30)), gold
 
 
+def _full_ce(logits: torch.Tensor, labels: torch.Tensor):
+    """(lse, gold) of full logits, each (B, S)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse, logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+
+
 def loss_fn(params: LM, cfg: ModelConfig, batch: dict):
     """Masked next-token CE over ``batch["tokens"]`` and ``batch["labels"]``
-    (B, S), numpy or tensors; labels below 0 are masked out.  Returns
-    (loss, metrics) with metrics ``{"loss", "moe_dropped"}``."""
+    (B, S), numpy or tensors; labels below 0 are masked out.  With an MTP
+    head, its CE against the labels shifted by one (the last position
+    masked) is added at weight 0.3, from the full MTP logits or, under
+    ``ce_chunk``, streamed from its hidden state.  Returns (loss, metrics)
+    with metrics ``{"loss", "moe_dropped"}`` and, with MTP, ``"mtp_loss"``."""
     labels = torch.as_tensor(batch["labels"], device=params.device).long()
     if cfg.ce_chunk:
         # run the trunk only (skip _logits), then stream the CE
         h, aux = forward(params, cfg, batch["tokens"], return_hidden=True)
         lse, gold = _chunked_ce(params, cfg, h, labels)
+        if cfg.mtp:
+            positions = torch.arange(h.shape[1], device=h.device)
+            mtp_h = _mtp_hidden(params, cfg, h, batch["tokens"],
+                                L.resolve_attn_impl(cfg), positions)
+            mtp_ce = _chunked_ce(params, cfg, mtp_h, _shifted_labels(labels))
     else:
         logits, aux = forward(params, cfg, batch["tokens"])
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-    mask = (labels >= 0).float()
-    loss = ((lse - gold) * mask).sum() / mask.sum().clamp_min(1.0)
-    return loss, {"loss": loss, "moe_dropped": aux["moe_dropped"]}
+        lse, gold = _full_ce(logits, labels)
+        if cfg.mtp:
+            mtp_ce = _full_ce(aux["mtp_logits"], _shifted_labels(labels))
+    loss = _masked_mean_nll(lse, gold, labels)
+    metrics = {"loss": loss, "moe_dropped": aux["moe_dropped"]}
+    if cfg.mtp:
+        mtp_loss = _masked_mean_nll(*mtp_ce, _shifted_labels(labels))
+        loss = loss + MTP_WEIGHT * mtp_loss
+        metrics.update(loss=loss, mtp_loss=mtp_loss)
+    return loss, metrics
 
 
 @torch.no_grad()
 def decode_step(params: LM, cfg: ModelConfig, cache: dict, tokens, pos):
     """One-token decode: tokens (B, 1), ``pos`` an int (the current length,
     shared by every row).  Returns (logits (B, 1, V_pad), cache), the cache
-    updated in place."""
+    updated in place: the ``first_k_dense`` stack's, then the main
+    stack's.  The MTP head does not decode."""
     kind = model_kind(cfg)
     impl = L.resolve_attn_impl(cfg)
     pos = int(pos)
     x = _embed(params, tokens)
     positions = pos + torch.arange(x.shape[1], device=x.device)
-    for i, layer in enumerate(params.layers):
-        x = _layer_apply(layer, x, cfg, kind, impl=impl, positions=positions,
-                         cache=_layer_cache(cache["layers"], i),
-                         cache_pos=pos)[0].to(x.dtype)
+    for layer_kind, name, stack in (("dense", "dense_layers",
+                                     params.dense_layers),
+                                    (kind, "layers", params.layers)):
+        for i, layer in enumerate(stack):
+            x = _layer_apply(layer, x, cfg, layer_kind, impl=impl,
+                             positions=positions,
+                             cache=_layer_cache(cache[name], i),
+                             cache_pos=pos)[0].to(x.dtype)
     h = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits(params, cfg, h), cache

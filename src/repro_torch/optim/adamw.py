@@ -58,22 +58,32 @@ def adamw_update(params: dict, grads: dict, state: AdamWState, *, lr,
     for name, p in params.items():
         g32 = grads[name].float()
         m, v = state.m[name], state.v[name]
-        m_new = b1 * m + (1 - b1) * g32
+        # m = b1 m + (1 - b1) g, in place (each product rounded, then summed)
+        m.mul_(b1).add_((1 - b1) * g32)
         if isinstance(v, tuple):
             vr, vc = v
             g2 = g32 * g32
             vr.copy_(b2 * vr + (1 - b2) * g2.mean(-1))
             vc.copy_(b2 * vc + (1 - b2) * g2.mean(-2))
+            del g2
             # rank-1 reconstruction (Adafactor): v ~ vr.vc / mean(vr)
             denom = torch.clamp_min(vr.mean(-1, keepdim=True), 1e-30)
             v_hat = vr[..., :, None] * vc[..., None, :] / denom[..., None]
         else:
-            v_hat = b2 * v + (1 - b2) * g32 * g32
-            v.copy_(v_hat)
-        m.copy_(m_new)
-        update = (m_new / bc1) / (torch.sqrt(v_hat / bc2) + eps) \
-            + weight_decay * p.float()
-        p.copy_((p.float() - lr * update).to(p.dtype))
+            v.mul_(b2).add_((1 - b2) * g32 * g32)
+            v_hat = v
+        # update = (m / bc1) / (sqrt(v_hat / bc2) + eps) + wd p, evaluated in
+        # that order with at most two temporaries the size of the leaf alive
+        # (the embedding of a large vocab is GBs)
+        denom = torch.sqrt(v_hat / bc2).add_(eps)
+        del v_hat
+        update = (m / bc1).div_(denom)
+        del denom
+        update.add_(weight_decay * p.float()).mul_(lr)
+        if p.dtype == torch.float32:
+            p.sub_(update)
+        else:
+            p.copy_((p.float() - update).to(p.dtype))
     return params, AdamWState(step, state.m, state.v)
 
 

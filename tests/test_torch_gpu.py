@@ -565,6 +565,103 @@ def test_flash_attention_in_the_mla_layout(cuda, b, sq, q_offset, kv_len):
     assert bool((got[..., 64:] == 0).all())  # V's zero columns stay zero
 
 
+# MLA's widths read in place: (b, h, hkv, sq, skv, d, dv, causal, window,
+# q_offset, kv_len); ragged S and kv_len, hq = hkv as MLA's and GQA groups
+# (R 4 and 8 in the decode kernel)
+MLA_WIDTH_CASES = [
+    (2, 4, 4, 100, 100, 96, 64, True, None, 0, None),      # ragged prefill
+    (1, 8, 8, 1000, 1000, 96, 64, True, None, 0, None),
+    (2, 4, 4, 100, 100, 192, 128, True, None, 0, None),
+    (1, 8, 8, 1000, 1000, 192, 128, True, None, 0, None),
+    (2, 4, 2, 77, 77, 192, 128, False, None, 0, None),     # non-causal, GQA
+    (1, 4, 4, 64, 64, 192, 128, True, 40, 0, None),        # window
+    (1, 4, 4, 33, 300, 192, 128, True, None, 200, 233),    # offset chunk
+]
+MLA_WIDTH_CASES += [(8, 8 * g, 8, 1, 512, d, dv, True, None, n - 1, n)
+                    for n in (1, 31, 94, 129, 512) for g in (1, 4, 8)
+                    for d, dv in ((96, 64), (192, 128))]
+MLA_WIDTH_CASES += [(2, 4, 4, 5, 300, 192, 128, True, None, 200, 205),
+                    (2, 4, 4, 40, 40, 24, 16, True, None, 0, None),  # padded
+                    (2, 4, 4, 1, 64, 24, 16, True, None, 30, 31)]
+
+
+def mla_width_inputs(case, dtype, cuda):
+    """q, k (D wide) and v (Dv wide) as the naive MLA layer makes them: k a
+    concatenation of a per-head part and a rope part broadcast over the
+    heads, v a permuted view (an einsum's (B, S, H, Dv) output)."""
+    b, hq, hkv, sq, skv, d, dv = case[:7]
+    gen = torch.Generator(cuda).manual_seed(sum(case[:7]))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    rope = d // 3
+    q = randn(b, hq, sq, d)
+    k = torch.cat([randn(b, hkv, skv, d - rope),
+                   randn(b, 1, skv, rope).expand(b, hkv, skv, rope)], dim=-1)
+    v = randn(b, skv, hkv, dv).permute(0, 2, 1, 3)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLA_WIDTH_CASES)
+def test_flash_attention_at_mla_widths(cuda, case, dtype, monkeypatch):
+    """QK 96 / V 64 (minicpm3-4b) and QK 192 / V 128 (deepseek-v3) against
+    the plain version, the output Dv wide; at a built pair the wrapper
+    copies nothing (q, k and the permuted v are read where they lie), and
+    the reduced MLA's 24 / 16 runs padded to 32 / 32."""
+    b, hq, hkv, sq, skv, d, dv, causal, window, q_offset, kv_len = case
+    q, k, v = mla_width_inputs(case, dtype, cuda)
+    seen = []
+    aligned = fa_ops._aligned
+    monkeypatch.setattr(fa_ops, "_aligned", lambda x, w: seen.append(
+        (x, aligned(x, w))) or seen[-1][1])
+    before = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, causal, window, q_offset, kv_len)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    built = (d, dv) in fa_ops.KERNEL_WIDTHS
+    assert all((x is y) == built for x, y in seen) and len(seen) == 3
+    want = fa_ref.mha_plain(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, kv_len=kv_len)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.shape == (b, hq, sq, dv) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    again = fa_ops.flash_attention(q, k, v, causal, window, q_offset, kv_len)
+    assert torch.equal(got, again)
+
+
+def test_flash_attention_refuses_widths_past_the_built_pairs(cuda):
+    q = torch.zeros((1, 2, 1, 256), device=cuda)
+    with pytest.raises(ValueError, match="past every width"):
+        fa_ops.flash_attention(q, q, q, True, None, 0, 1)
+    v = torch.zeros((1, 2, 1, 192), device=cuda)
+    with pytest.raises(ValueError, match="past every width"):
+        fa_ops.flash_attention(v, v, v, True, None, 0, 1)
+
+
+@pytest.mark.parametrize("d,dv", [(96, 64), (192, 128)])
+def test_flash_attention_function_grads_at_mla_widths(cuda, d, dv):
+    """The autograd Function at MLA's widths: dv comes back Dv wide, and
+    the grads are the plain version's VJP."""
+    case = (2, 4, 4, 70, 70, d, dv)
+    q, k, v = mla_width_inputs(case, torch.float32, cuda)
+    gen = torch.Generator(cuda).manual_seed(d)
+    cot = torch.randn((2, 4, 70, dv), generator=gen, device=cuda)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(*leaves, True, None)
+    assert fa_ops.flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, leaves, cot)
+    plain = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    want_out = fa_ref.mha_plain(*plain)
+    want = torch.autograd.grad(want_out, plain, cot)
+    torch.testing.assert_close(out, want_out, rtol=2e-5, atol=2e-5)
+    assert got[2].shape == v.shape
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
 WKV_CASES = [  # (b, h, t, dk, dv)
     (2, 3, 70, 16, 16), (1, 2, 64, 32, 16), (1, 1, 128, 64, 64),
     (8, 64, 1, 64, 64), (1, 4, 1000, 64, 64), (2, 2, 17, 128, 128),
@@ -727,12 +824,15 @@ def test_serve_engine_on_card_equals_cpu(cuda, arch):
 
 @pytest.mark.parametrize("arch,absorb", [("qwen3-moe-30b-a3b", False),
                                          ("minicpm3-4b", True),
-                                         ("minicpm3-4b", False)])
+                                         ("minicpm3-4b", False),
+                                         ("deepseek-v3-671b", True),
+                                         ("deepseek-v3-671b", False)])
 def test_families_on_card_equal_cpu(cuda, arch, absorb):
-    """Reduced qwen3-moe and minicpm3 (absorbed and naive decode): forward
-    and 6 decode steps on the card against the CPU run of the same params,
-    1e-4; one flash_attention launch a layer and step, none in the absorbed
-    decode."""
+    """Reduced qwen3-moe, minicpm3 and deepseek-v3 (absorbed and naive
+    decode): forward and 6 decode steps on the card against the CPU run of
+    the same params, 1e-4; one flash_attention launch a layer and step (both
+    of deepseek's stacks), none in the absorbed decode, and one more in a
+    forward with an MTP head."""
     import dataclasses
 
     from repro_torch.models import model as M
@@ -752,10 +852,13 @@ def test_families_on_card_equal_cpu(cuda, arch, absorb):
         0 if absorb else 6 * cfg.n_layers)
     before = fa_ops.flash_attention.launches
     full, aux = M.forward(p_gpu, cfg, torch.as_tensor(toks, device=cuda))
-    assert fa_ops.flash_attention.launches - before == cfg.n_layers
+    assert fa_ops.flash_attention.launches - before == cfg.n_layers + cfg.mtp
     want_full, want_aux = M.forward(p_cpu, cfg, torch.as_tensor(toks))
     torch.testing.assert_close(full.cpu(), want_full, rtol=1e-4, atol=1e-4)
     assert float(aux["moe_dropped"]) == float(want_aux["moe_dropped"])
+    if cfg.mtp:
+        torch.testing.assert_close(aux["mtp_logits"].cpu(),
+                                   want_aux["mtp_logits"], rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -1159,6 +1262,40 @@ def test_loss_grads_on_card_launch_kernels(cuda, arch, remat):
     assert n_cpu == 0
     assert n_gpu == cfg.n_layers * (2 if remat == "full" else 1)
     torch.testing.assert_close(loss_g, loss_c, rtol=1e-5, atol=1e-6)
+    for g, c in zip(grads_g, grads_c):
+        torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("ce_chunk", [0, 128])
+def test_deepseek_loss_grads_on_card(cuda, ce_chunk):
+    """Reduced deepseek-v3 (a dense and a MoE layer, MLA, the MTP head)
+    under remat "full": both loss routes on the card equal the CPU's, with
+    ``mtp_loss``; the two stacks' layers launch flash_attention in the
+    forward and the recompute, the MTP layer once."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+
+    cfg, p_cpu, p_gpu = lm_pair("deepseek-v3-671b", cuda)
+    cfg = dataclasses.replace(cfg, remat="full", ce_chunk=ce_chunk)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab, size=(2, 24)),
+             "labels": rng.integers(0, cfg.vocab, size=(2, 24))}
+    out = []
+    for params in (p_cpu, p_gpu):
+        params.requires_grad_(True)
+        named = dict(params.named_parameters())
+        before = fa_ops.flash_attention.launches
+        loss, metrics = M.loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True, materialize_grads=True)
+        out.append((loss.detach().cpu(), metrics["mtp_loss"].detach().cpu(),
+                    [g.cpu() for g in grads],
+                    fa_ops.flash_attention.launches - before))
+    (loss_c, mtp_c, grads_c, n_cpu), (loss_g, mtp_g, grads_g, n_gpu) = out
+    assert n_cpu == 0 and n_gpu == 2 * cfg.n_layers + 1
+    torch.testing.assert_close(loss_g, loss_c, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(mtp_g, mtp_c, rtol=1e-5, atol=1e-6)
     for g, c in zip(grads_g, grads_c):
         torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-5)
 

@@ -132,7 +132,8 @@ def test_attention_gets_the_mla_head_dims(monkeypatch):
     _, p_cfg = configs()
     L.mla_apply(port_mla(), torch.tensor(inputs(5)), p_cfg)
     assert p_cfg.head_dim == 16  # d_model // n_heads, unused by MLA
-    assert seen == [(torch.Size([B, 4, 5, 24]),) * 3]
+    # q and k at nope + rope, V at v_head_dim (not padded to the QK width)
+    assert seen == [(torch.Size([B, 4, 5, 24]),) * 2 + (torch.Size([B, 4, 5, 16]),)]
 
 
 @functools.lru_cache(maxsize=None)

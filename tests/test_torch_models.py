@@ -137,7 +137,7 @@ def test_xla_flash_raises(arch):
         M.forward(params, cfg, tokens(4, 4, cfg.vocab))
 
 
-NOT_PORTED = {"deepseek-v3-671b": r"A12 \(b\) 3", "hymba-1.5b": r"A12 \(b\) 4",
+NOT_PORTED = {"hymba-1.5b": r"A12 \(b\) 4",
               "seamless-m4t-large-v2": r"A12 \(b\) 5",
               "internvl2-26b": r"A12 \(b\) 6"}
 
@@ -146,11 +146,13 @@ NOT_PORTED = {"deepseek-v3-671b": r"A12 \(b\) 3", "hymba-1.5b": r"A12 \(b\) 4",
                                   if a not in ARCHS + ["granite-3-8b",
                                                        "starcoder2-15b",
                                                        "qwen3-moe-30b-a3b",
-                                                       "minicpm3-4b"]])
+                                                       "minicpm3-4b",
+                                                       "deepseek-v3-671b"]])
 def test_families_not_ported_raise(arch):
     """qwen3-moe and minicpm3 run since ROADMAP A12 (b) 1-2
-    (tests/test_torch_{moe,mla,families}.py); the rest raise, naming their
-    A12 (b) item."""
+    (tests/test_torch_{moe,mla,families}.py) and deepseek-v3 since A12 (b)
+    3 (tests/test_torch_deepseek.py); the rest raise, naming their A12 (b)
+    item."""
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
         M.init_params(cfg, device="cpu")
