@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases 1,2,14     # training (dense, RWKV-6)
     python3 chip_smoke.py --phases 1,2,15     # the MoE and MLA families
     python3 chip_smoke.py --phases 1,2,16     # deepseek-v3
+    python3 chip_smoke.py --phases 1,2,17     # hymba, seamless, internvl2
 
 Phases:
 
@@ -47,9 +48,12 @@ Phases:
               two float32 ulps, as the GPU tests allow); each kernel's
               device time (CUDA-graph replay), its eager wrapper time, its
               plain version's eager time (CUDA events), and its bound.
-              LM half: phase 10's requests run through a one-layer,
-              full-width granite-3-2b and rwkv6-7b on the plain versions
-              (the same positions and kv_len as the full models), recording
+              LM half: 16 requests (prompt lengths
+              ``default_rng(0).integers(8, 65)``, 32 new tokens each; phase
+              10 served them until phase 17 joined the run) run through a
+              one-layer, full-width granite-3-2b and rwkv6-7b on the plain
+              versions (the positions and kv_len of the full models),
+              recording
               the attention and WKV calls; flash_attention is held against
               its plain version at those decode calls (B 8, 32/8 heads, Sq
               1, Skv 512), a 2048-token causal prefill, and ragged cases
@@ -126,7 +130,12 @@ Phases:
               serve and ``Trainer.run``, on minicpm3-4b's naive serve and
               its ``Trainer.run``, and none on its absorbed serve; on phase
               16 flash_attention on deepseek-v3's naive serve and its
-              ``Trainer.run``, and none on its absorbed serve.
+              ``Trainer.run``, and none on its absorbed serve; on phase 17
+              flash_attention on hymba-1.5b's serve, its decode past the
+              window and its ``Trainer.run``, on seamless's
+              ``prefill_encoder``, its greedy decode loop and its training
+              steps, and on internvl2-26b's serve, its forward with
+              patches and its training steps.
 9. store    — ``GraphStore`` + ``IncrementalIndex`` on the card: the
               join-heavy graph with ``random_update_batches(.., 8, 4096,
               delete_frac=0.35, seed=1)``, and the scale graph seeded as a
@@ -156,9 +165,11 @@ Phases:
               and with a digest cache; peak device memory.
 10. serve   — ``ServeEngine`` at full width on granite-3-2b, then
               rwkv6-7b (the first freed before the second): float32 params
-              from the port's ``init_params`` with a seeded generator, 16
-              requests (prompt lengths ``default_rng(0).integers(8, 65)``,
-              tokens uniform in the vocab, 32 new tokens each) under
+              from the port's ``init_params`` with a seeded generator,
+              phases 15-17's 8 requests (prompt lengths
+              ``default_rng(0).integers(8, 33)``, tokens uniform in the
+              vocab, 16 new tokens each; phase 3's 16 of 8-64 + 32 until
+              phase 17 joined the run, logged) under
               ``ServeConfig(max_batch=8, max_len=512, eos_token=-1)``.  The
               tokens must equal a second run with ``attn_impl="ref"`` (the
               plain versions) on the same params; on a difference the phase
@@ -302,7 +313,8 @@ Phases:
 15. families — the MoE and MLA families at full width, float32, seeded
               params from ``init_params``, every earlier phase's device
               memory freed first: (a) qwen3-moe-30b-a3b at 4 of its 48
-              layers serves phase 10's 16 requests through ``ServeEngine``
+              layers serves phase 16's 8 requests (phase 10's 16 until
+              phase 17 joined the run; logged) through ``ServeEngine``
               (exactly 4 flash_attention launches a decode step); its
               tokens equal the ``attn_impl="ref"`` run's on the same
               params, or, on a differing token, both serves run again with
@@ -320,7 +332,7 @@ Phases:
               router decisions that differ between the two runs counted,
               each to be a tie below 1e-5 if any do, when the bounds are
               not held); (c) minicpm3-4b at 4 of its 62 layers serves the
-              16 requests with its absorbed decode (no flash launch) and
+              8 requests with its absorbed decode (no flash launch) and
               with the naive one on the kernel (QK 96 / V 64, read in
               place) and on the plain version, whose tokens must be equal;
               teacher-forced
@@ -368,6 +380,54 @@ Phases:
               against its plain version and timed as phase 15 (e), and
               ptxas's registers and spills for the MLA instances beside
               the dynamic shared memory of these launches.
+
+17. families 2 — the hybrid, encdec and vlm families at their published
+              widths, float32, seeded params from ``init_params``, every
+              earlier phase's device memory freed first: (a) hymba-1.5b
+              (hf:nvidia/Hymba-1.5B-Base: d 1600, 25/5 heads of 64, window
+              1024, Mamba state 16) at its full 32 layers serves phase 16's
+              8 requests (8-32 prompt + 16 new tokens on 8 slots) through
+              ``ServeEngine``: exactly 32 flash_attention launches a decode
+              step, tokens equal to the ``attn_impl="ref"`` run's (or a
+              differing token's plain top-2 margin below 1e-5), tokens/s,
+              median step, peak memory, one profiled step and the Mamba
+              branch's share of it (H14: ``mamba_apply``'s device time at
+              the decode shape, times the layers); (b) 2 full-width layers,
+              B 1: ``forward`` on 1,100 tokens on the kernel and the plain
+              version and the same tokens teacher-forced through
+              ``decode_step``, the logits within 2e-3 at every position,
+              the 76 past the 1,024-key window included; (c) 4 layers
+              trained through ``Trainer``, B 4 x S 512, remat "full", 5
+              steps: finite losses, exactly 8 flash launches a step, median
+              step, tokens/s, peak memory, the Mamba scan's share of the
+              step (H14), loss and grads against the plain version (loss
+              1e-5 relative, each grad leaf 1e-3 of its largest plain
+              value); (d) seamless-m4t-large-v2 (hf:facebook/
+              seamless-m4t-v2-large: 24 + 24 layers, d 1024, 16/16 heads,
+              vocab 256,206) at full depth: ``init_cache(enc_memory_len=
+              128)``, ``prefill_encoder`` over 128 seeded frames
+              (``frontend_len`` at S 512) and a greedy loop of
+              ``decode_step`` over the 8 prompts, 16 new tokens each, on
+              the kernels and on the plain version (24 flash launches in
+              the encoder, 48 a step; tokens as in (a)); teacher-forced
+              logits against ``forward`` within 2e-3; the memory's K/V
+              projection that every step redoes in every layer (H15); then
+              2 + 2 layers trained for 5 steps at B 4 x S 512 with 128
+              frames (``loss_fn`` and the port's AdamW: ``Trainer``'s data
+              has no frontend), 12 flash launches a step, bounds as in (c);
+              (e) internvl2-26b (hf:OpenGVLab/InternVL2-26B: d 6144, 48/8
+              heads of 128, d_ff 16384) at 8 of its 48 layers (logged)
+              serves the 8 requests, text only (8 launches a step), a
+              ``forward`` of 64 text tokens after 256 patches against the
+              plain version within 2e-3, and 2 layers trained as (d)'s at
+              B 2 x S 512 + 256 patches; (f) flash_attention at the seven
+              shapes these put on a path (hymba's windowed decode past
+              position 1,024 at 5 query heads a KV head and its training
+              prefill, seamless's non-causal encoder, cross prefill and
+              cross decode, internvl's D 128 decode at 6 query heads a KV
+              head and its 768-row prefill), each against its plain
+              version and timed as phase 15 (e), SDPA over the same
+              visible keys as the library call.
 
 Any failure propagates: the script exits non-zero and prints no result.
 The last line of a passing run is
@@ -2549,11 +2609,27 @@ BF16_OPS_PER_S = 989e12
 
 
 def serve_requests(vocab: int):
-    """Phase 10's requests: prompt lengths ``default_rng(0).integers(8, 65)``,
-    tokens uniform in the vocab, 32 new tokens each."""
+    """Phase 3's LM half's requests (phase 10's until phase 17 joined the
+    run): prompt lengths ``default_rng(0).integers(8, 65)``, tokens uniform
+    in the vocab, 32 new tokens each."""
     rng = np.random.default_rng(0)
     lens = rng.integers(8, 65, size=SERVE_REQUESTS)
     return [(rng.integers(0, vocab, size=int(n)), SERVE_MAX_NEW) for n in lens]
+
+
+# phases 10 and 15-17's requests: 8 prompts of 8-32 tokens, 16 new tokens
+# each
+SHORT_REQUESTS, SHORT_MAX_NEW = 8, 16
+
+
+def short_requests(vocab: int):
+    """Phases 10 and 15-17's requests: 8 prompts of
+    ``default_rng(0).integers(8, 33)`` tokens, uniform in the vocab, 16 new
+    tokens each."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(8, 33, size=SHORT_REQUESTS)
+    return [(rng.integers(0, vocab, size=int(n)), SHORT_MAX_NEW)
+            for n in lens]
 
 
 def lm_modules():
@@ -2877,14 +2953,14 @@ def top2_margins(logits, vocab):
     return (top[:, 0] - top[:, 1]).cpu()
 
 
-def serve_once(lm, params, cfg, record_margins=False, token_steps=None,
-               requests=None):
-    """Phase 10's requests (or ``requests``, (prompt, max_new) pairs)
-    through ``ServeEngine``: (done, wall seconds, per-decode device ms from
+def serve_once(lm, params, cfg, requests, record_margins=False,
+               token_steps=None):
+    """``requests``, (prompt, max_new) pairs, through ``ServeEngine``:
+    (done, wall seconds, per-decode device ms from
     CUDA events, {(rid, j): top-2 margin}).  ``token_steps``, if given, is
     filled with {(rid, j): (decode call, slot)} for every token served."""
     eng = lm.ServeEngine(params, cfg, lm.ServeConfig(**SERVE_CONFIG))
-    for prompt, max_new in requests or serve_requests(cfg.vocab):
+    for prompt, max_new in requests:
         eng.submit(prompt, max_new)
     reqs, events, margins, last = list(eng.queue), [], {}, {}
     decode, tick = eng._decode, eng.tick
@@ -2992,12 +3068,17 @@ def phase_serve(main, lm, arch: str):
     params = lm.M.init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
+    reqs = short_requests(cfg.vocab)
     log(f"[10 serve] {arch}: {n_params:,} params ({n_params * 4 / 1e9:.2f} GB "
         f"float32) drawn in {time.perf_counter() - t0:.2f} s; "
-        f"{SERVE_REQUESTS} requests, ServeConfig({SERVE_CONFIG})")
+        f"{len(reqs)} requests, ServeConfig({SERVE_CONFIG})")
+    log(f"  cut: {len(reqs)} requests of 8-32 prompt + {SHORT_MAX_NEW} new "
+        f"tokens, phases 15-17's (the {SERVE_REQUESTS} of 8-64 + "
+        f"{SERVE_MAX_NEW} that phase 3's LM half records before phase 17 "
+        f"joined the run)")
 
     done, wall, step_ms, _ = main.run(
-        arch, lambda: serve_once(lm, params, cfg), phase=10)
+        arch, lambda: serve_once(lm, params, cfg, requests=reqs), phase=10)
     n_tok = sum(len(t) for _, t in done)
     log(f"  kernels: {len(done)} requests, {n_tok} tokens in {wall:.3f} s = "
         f"{n_tok / wall:.2f} tokens/s; {len(step_ms)} decode steps, median "
@@ -3006,8 +3087,8 @@ def phase_serve(main, lm, arch: str):
         f"{main.counts[(10, arch)]}")
 
     cfg_ref = dataclasses.replace(cfg, attn_impl="ref")
-    done_ref, wall_ref, step_ref, margins = serve_once(lm, params, cfg_ref,
-                                                       record_margins=True)
+    done_ref, wall_ref, step_ref, margins = serve_once(
+        lm, params, cfg_ref, record_margins=True, requests=reqs)
     log(f"  plain: {sum(len(t) for _, t in done_ref)} tokens in {wall_ref:.3f}"
         f" s; median decode step {float(np.median(step_ref)):.4f} ms; "
         f"smallest top-2 logit margin {min(margins.values()):.4g}")
@@ -3453,7 +3534,8 @@ def phase_mesh(main, core, graphs, search, scale: float):
 # granite-3-2b's (a), (b) and (d) batches, and rwkv6-7b's (c) and (d)
 TRAIN_SHAPE = {"granite-3-2b": (4, 512), "rwkv6-7b": (4, 256),
                "qwen3-moe-30b-a3b": (4, 512), "minicpm3-4b": (4, 512),
-               "deepseek-v3-671b": (2, 512)}
+               "deepseek-v3-671b": (2, 512), "hymba-1.5b": (4, 512),
+               "seamless-m4t-large-v2": (4, 512), "internvl2-26b": (2, 512)}
 TRAIN_FULL_STEPS = 8      # (a): granite at full depth
 TRAIN_RESUME_STEPS = 30   # (b): 2 layers, a commit at step 15, keep 1
 TRAIN_RWKV_STEPS = 5      # (c): rwkv6-7b, 2 layers
@@ -3688,11 +3770,13 @@ def loss_grads(tm, cfg, params, batch):
 
 
 def train_grads(tm, arch: str, loss_rtol: float, grad_tol: float,
-                n_layers: int = 2, tag: str = "(d)", cfg=None, shape=None):
+                n_layers: int = 2, tag: str = "(d)", cfg=None, shape=None,
+                n_frontend: int = 0):
     """Loss and grads of ``n_layers`` full-width layers (or ``cfg``) on the
     kernels against the same on the plain versions (``attn_impl="ref"``),
-    same params and batch (``TRAIN_SHAPE[arch]`` or ``shape``); each grad
-    leaf within ``grad_tol`` x its largest plain value.  An MoE model's
+    same params and batch (``TRAIN_SHAPE[arch]`` or ``shape``, with
+    ``n_frontend`` seeded frames or patches where the family takes them);
+    each grad leaf within ``grad_tol`` x its largest plain value.  An MoE model's
     router decisions are compared too: where some differ between the runs,
     the bounds are not held, and each one's margin must be a tie at float
     error (below ``TIE_MARGIN``)."""
@@ -3702,6 +3786,8 @@ def train_grads(tm, arch: str, loss_rtol: float, grad_tol: float,
                               "cuda")
     params.requires_grad_(True)
     batch = tm.SyntheticLMDataset(cfg.vocab, s, b, seed=4).batch_at(0)
+    if n_frontend:
+        batch["frontend"] = frontend_embeddings(cfg, b, n_frontend, seed=4)
     with RouterLog(tm.M.L) as routes_k:
         loss_k, grads_k = loss_grads(tm, cfg, params, batch)
     with RouterLog(tm.M.L) as routes_p:
@@ -3713,7 +3799,7 @@ def train_grads(tm, arch: str, loss_rtol: float, grad_tol: float,
             for name, g in grads_k.items()}
     worst_name = max(errs, key=errs.get)
     worst = errs[worst_name]
-    log(f"  {tag} {arch} x{cfg.n_layers} layers: loss kernels {loss_k:.7f}, plain "
+    log(f"  {tag} {arch} x{cfg.n_layers + cfg.n_encoder_layers} layers: loss kernels {loss_k:.7f}, plain "
         f"{loss_p:.7f} (rel diff {rel:.3g}, limit {loss_rtol:g}); largest grad "
         f"diff {worst:.3g} of the leaf's max at {worst_name} (limit "
         f"{grad_tol:g})")
@@ -3735,6 +3821,7 @@ def train_grads(tm, arch: str, loss_rtol: float, grad_tol: float,
                              f"plain path (loss {rel}, grads {worst})")
     del params, grads_k, grads_p
     torch.cuda.empty_cache()
+    return rel, worst
 
 
 def backward_ms(fn, inputs, cotangents, reps: int = 5) -> float:
@@ -3962,7 +4049,7 @@ def route_diffs(a: RouterLog, b: RouterLog):
     return out
 
 
-def explain_flips(lm, params, cfg, cfg_ref, bad, margins, requests=None):
+def explain_flips(lm, params, cfg, cfg_ref, bad, margins, requests):
     """Phase 15 (a)'s report on differing tokens: both serves again with
     every router decision logged.  Prints the first decision whose expert
     set differs and, for each differing token, its top-2 logit margin and
@@ -4009,8 +4096,8 @@ def family_params(lm, cfg, tag, label="[15 families]"):
     return params
 
 
-def family_serve(main, lm, params, cfg, path, tag, phase=15, requests=None):
-    """One serve of phase 10's requests (or ``requests``) as ``path``'s
+def family_serve(main, lm, params, cfg, path, tag, requests, phase=15):
+    """One serve of ``requests`` as ``path``'s
     entry-point call; logs tokens/s and the median step, and checks the
     flash launches a step."""
     done, wall, step_ms, _ = main.run(
@@ -4038,18 +4125,22 @@ def serve_moe(main, lm):
                               n_layers=FAMILY_SERVE_LAYERS[arch])
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
+    log(f"[15 families] cut: (a) and (c) serve phase 16's {SHORT_REQUESTS} "
+        f"requests of 8-32 prompt + {SHORT_MAX_NEW} new tokens (phase 10's "
+        f"16 of 8-64 + 32 before phase 17 joined the run)")
     params = family_params(lm, cfg, "(a)")
-    done, _ = family_serve(main, lm, params, cfg, arch, "(a)")
+    reqs = short_requests(cfg.vocab)
+    done, _ = family_serve(main, lm, params, cfg, arch, "(a)", requests=reqs)
     cfg_ref = dataclasses.replace(cfg, attn_impl="ref")
-    done_ref, wall_ref, step_ref, margins = serve_once(lm, params, cfg_ref,
-                                                       record_margins=True)
+    done_ref, wall_ref, step_ref, margins = serve_once(
+        lm, params, cfg_ref, record_margins=True, requests=reqs)
     log(f"  (a) plain: {sum(len(t) for _, t in done_ref)} tokens in "
         f"{wall_ref:.3f} s; median decode step {float(np.median(step_ref)):.4f}"
         f" ms; smallest top-2 logit margin {min(margins.values()):.4g}")
     bad = differing_tokens(arch, done, done_ref)
     if bad:
         log(f"  (a) {len(bad)} requests differ from the plain run")
-        explain_flips(lm, params, cfg, cfg_ref, bad, margins)
+        explain_flips(lm, params, cfg, cfg_ref, bad, margins, requests=reqs)
     else:
         log(f"  (a) tokens equal the plain run's for all {len(done)} requests")
     toks = teacher_tokens(cfg.vocab)
@@ -4080,13 +4171,16 @@ def serve_mla(main, lm):
     log(f"[15 families] (c) depth cut: {arch} served at {cfg.n_layers} of "
         f"its 62 layers (8 before phase 16 joined the run)")
     params = family_params(lm, cfg, "(c)")
-    done_abs, _ = family_serve(main, lm, params, cfg, arch, "(c)")
+    reqs = short_requests(cfg.vocab)
+    done_abs, _ = family_serve(main, lm, params, cfg, arch, "(c)",
+                               requests=reqs)
     log(f"  (c) {arch}: the absorbed decode launches no flash_attention (its "
         f"latent-space attention is plain torch, as in the reference)")
-    done, _ = family_serve(main, lm, params, naive, f"{arch}_naive", "(c)")
+    done, _ = family_serve(main, lm, params, naive, f"{arch}_naive", "(c)",
+                           requests=reqs)
     naive_ref = dataclasses.replace(naive, attn_impl="ref")
-    done_ref, wall_ref, step_ref, margins = serve_once(lm, params, naive_ref,
-                                                       record_margins=True)
+    done_ref, wall_ref, step_ref, margins = serve_once(
+        lm, params, naive_ref, record_margins=True, requests=reqs)
     log(f"  (c) naive, plain: {sum(len(t) for _, t in done_ref)} tokens in "
         f"{wall_ref:.3f} s; median decode step {float(np.median(step_ref)):.4f}"
         f" ms; smallest top-2 logit margin {min(margins.values()):.4g}")
@@ -4180,16 +4274,18 @@ def mla_inputs(gen, b, h, sq, skv, nope=64, rope=32, dv=64):
     return q, k, v
 
 
-def time_flash_case(fa_ops, fa_ref, name, q, k, v, kw, shape):
+def time_flash_case(fa_ops, fa_ref, name, q, k, v, kw, shape, library=None):
     """``check_flash`` and ``time_kernel`` of one call, with SDPA (with
-    ``enable_gqa``; over the first kv_len keys for a decode, ``is_causal``
-    for a prefill) as the library call."""
+    ``enable_gqa``; over the first kv_len keys for a decode or a
+    non-causal call, ``is_causal`` for a prefill) as the library call,
+    unless ``library`` gives it."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     err = check_flash(fa_ops, fa_ref, name, q, k, v, kw)
     n = kw.get("kv_len", k.shape[2])
-    library = (lambda: sdpa(q, k[:, :, :n], v[:, :, :n], enable_gqa=True)) \
-        if kw else (lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    library = library or (
+        (lambda: sdpa(q, k[:, :, :n], v[:, :, :n], enable_gqa=True)) if kw
+        else (lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)))
     return err, time_kernel(
         name, lambda: fa_ops.flash_attention(q, k, v, **kw),
         lambda: fa_ref.mha_plain(q, k, v, **kw),
@@ -4283,20 +4379,10 @@ DEEPSEEK_DEPTH = dict(n_layers=2, first_k_dense=1)
 # so 256 routed experts' state alone is 180 GB; top-8 and the shared
 # expert stay
 DEEPSEEK_TRAIN_EXPERTS = 16
-DEEPSEEK_REQUESTS, DEEPSEEK_MAX_NEW = 8, 16
 # room kept beside (c)'s training state for activations and the optimizer's
 # temporaries (a leaf's update holds two of its size; the embedding is 3.7
 # GB)
 TRAIN_ROOM_GB = 12.0
-
-
-def deepseek_requests(vocab: int):
-    """(a)'s requests: 8 prompts of ``default_rng(0).integers(8, 33)``
-    tokens, uniform in the vocab, 16 new tokens each."""
-    rng = np.random.default_rng(0)
-    lens = rng.integers(8, 33, size=DEEPSEEK_REQUESTS)
-    return [(rng.integers(0, vocab, size=int(n)), DEEPSEEK_MAX_NEW)
-            for n in lens]
 
 
 def param_plan(model, cfg) -> dict:
@@ -4360,10 +4446,10 @@ def serve_deepseek(main, lm):
     n = sum(p.numel() for p in params.parameters())
     if n != total:
         raise AssertionError(f"(a) drew {n:,} params, planned {total:,}")
-    reqs = deepseek_requests(cfg.vocab)
+    reqs = short_requests(cfg.vocab)
     done, step_ms = family_serve(main, lm, params, cfg, DEEPSEEK, "(a)",
                                  phase=16, requests=reqs)
-    if sorted(len(t) for _, t in done) != [DEEPSEEK_MAX_NEW] * len(reqs) or \
+    if sorted(len(t) for _, t in done) != [SHORT_MAX_NEW] * len(reqs) or \
             not all(0 <= x < cfg.vocab for _, t in done for x in t):
         raise AssertionError(f"(a) served {[len(t) for _, t in done]} tokens")
     toks = teacher_tokens(cfg.vocab)
@@ -4491,10 +4577,537 @@ def phase_deepseek(main, fa_ops, fa_ref, stores):
     return err, tim
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the hybrid, encdec and vlm families at their published widths
+# ---------------------------------------------------------------------------
+
+HYMBA, SEAMLESS, INTERNVL = "hymba-1.5b", "seamless-m4t-large-v2", "internvl2-26b"
+LABEL17 = "[17 families 2]"
+# (b): past hymba's 1,024-token window, at full width with 2 layers, B 1
+WINDOW_TOKENS, WINDOW_LAYERS = 1_100, 2
+# depth cuts (the widths stay the published ones): hymba trained at 4 of
+# its 32 layers; seamless trained at 2 + 2 of its 24 + 24; internvl2-26b
+# served at 8 of its 48 (its 48 float32 layers, 75 GB, fit beside nothing)
+# and trained at 2
+HYMBA_TRAIN_LAYERS = 4
+SEAMLESS_TRAIN_LAYERS = 2
+INTERNVL_SERVE_LAYERS, INTERNVL_TRAIN_LAYERS = 8, 2
+INTERNVL_FORWARD = (2, 64)  # (e)'s forward: B x text tokens, 256 patches
+
+
+def frontend_embeddings(cfg, b: int, n: int, seed: int) -> torch.Tensor:
+    """(b, n, d) stub frames or patches from a seeded generator, on the
+    card (the reference's frontends are stubs too)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return torch.randn((b, n, cfg.d_model), generator=gen, device="cuda")
+
+
+def tokens_match(arch, tag, done, done_ref, margins):
+    """Tokens against the plain run's: equal, or each first differing token
+    a tie at float error (the plain run's top-2 margin there below
+    ``TIE_MARGIN``)."""
+    bad = differing_tokens(arch, done, done_ref)
+    for rid, j, a, b in bad:
+        margin = margins.get((rid, j), float("inf"))
+        log(f"  {tag} request {rid} token {j}: kernels {a}, plain {b}; the "
+            f"plain run's top-2 logit margin there {margin:.4g}")
+        if not margin < TIE_MARGIN:
+            raise AssertionError(f"{tag} {arch}: request {rid} token {j} "
+                                 f"differs at a margin past {TIE_MARGIN}")
+    log(f"  {tag} tokens equal the plain run's for "
+        f"{len(done) - len(bad)} of {len(done)} requests"
+        + (f"; the rest part at ties below {TIE_MARGIN:g}" if bad else ""))
+
+
+def mamba_share(lm, params, cfg, step_ms, busy_ms):
+    """H14 in decode: device ms of one layer's ``mamba_apply`` at (a)'s
+    decode shape (B 8, T 1, from a state; a CUDA graph of 20 calls), times
+    the layers, against the median step and the profiled busy time."""
+    b = SERVE_CONFIG["max_batch"]
+    layer = params.layers[0]
+    gen = torch.Generator("cuda").manual_seed(17)
+    x = torch.randn((b, 1, cfg.d_model), generator=gen, device="cuda")
+    state = lm.S.mamba_state_init(cfg, b, device="cuda")
+    with torch.no_grad():
+        ms = device_ms(lambda: lm.S.mamba_apply(layer.mamba, x, cfg,
+                                                state=state))
+    total = ms * cfg.n_layers
+    log(f"  (a) H14: mamba_apply at (B {b}, T 1) {ms:.5f} ms on the device a "
+        f"layer, {total:.4f} ms a step over {cfg.n_layers} layers: "
+        f"{100 * total / step_ms:.1f} % of the median step"
+        + (f", {100 * total / busy_ms:.1f} % of the profiled busy time"
+           if busy_ms else ""))
+    return total
+
+
+def serve_hymba(main, lm):
+    """(a): hymba-1.5b at full depth serves 8 requests, kernels against
+    plain; the profiled step and the Mamba branch's share of it."""
+    cfg = lm.get_config(HYMBA)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    marks = [("start", time.perf_counter())]
+    params = family_params(lm, cfg, "(a)", label=LABEL17)
+    reqs = short_requests(cfg.vocab)
+    done, step_ms = family_serve(main, lm, params, cfg, HYMBA, "(a)",
+                                 phase=17, requests=reqs)
+    cfg_ref = dataclasses.replace(cfg, attn_impl="ref")
+    done_ref, wall_ref, step_ref, margins = serve_once(
+        lm, params, cfg_ref, record_margins=True, requests=reqs)
+    log(f"  (a) plain: {sum(len(t) for _, t in done_ref)} tokens in "
+        f"{wall_ref:.3f} s; median decode step {float(np.median(step_ref)):.4f}"
+        f" ms; smallest top-2 logit margin {min(margins.values()):.4g}")
+    tokens_match(HYMBA, "(a)", done, done_ref, margins)
+    marks.append(("params and both serves", time.perf_counter()))
+    toks = teacher_tokens(cfg.vocab)
+    cache = lm.M.init_cache(cfg, toks.shape[0], SERVE_CONFIG["max_len"],
+                            device="cuda")
+    lm.M.decode_step(params, cfg, cache, toks[:, :1], 0)
+    ops = profile(f"(a) {HYMBA} decode_step (B=8, pos 1)",
+                  lambda: lm.M.decode_step(params, cfg, cache, toks[:, 1:2], 1),
+                  top=10)
+    marks.append(("profile", time.perf_counter()))
+    busy = sum(ms for _, _, ms in ops)
+    med = float(np.median(step_ms))
+    mamba_share(lm, params, cfg, med, busy)
+    marks.append(("Mamba share", time.perf_counter()))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  (a) peak device memory {(peak - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held; seconds: " + ", ".join(
+            f"{name} {t - t_prev:.1f}"
+            for (_, t_prev), (name, t) in zip(marks, marks[1:])))
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return med
+
+
+def hymba_window(main, lm):
+    """(b): 1,100 tokens through 2 full-width layers, B 1: ``forward`` on
+    the kernel and on the plain version, and the same tokens teacher-forced
+    one at a time through ``decode_step``; the logits agree within 2e-3 at
+    every position, the 76 past the 1,024-key window included."""
+    cfg = dataclasses.replace(lm.get_config(HYMBA), n_layers=WINDOW_LAYERS)
+    cfg_ref = dataclasses.replace(cfg, attn_impl="ref")
+    params = family_params(lm, cfg, "(b)", label=LABEL17)
+    gen = torch.Generator("cuda").manual_seed(171)
+    toks = torch.randint(0, cfg.vocab, (1, WINDOW_TOKENS), generator=gen,
+                         device="cuda")
+    v = cfg.vocab
+
+    def decode_all():
+        cache = lm.M.init_cache(cfg, 1, WINDOW_TOKENS, device="cuda")
+        out = torch.empty((1, WINDOW_TOKENS, v), device="cuda")
+        for t in range(WINDOW_TOKENS):
+            out[:, t] = lm.M.decode_step(params, cfg, cache,
+                                         toks[:, t:t + 1], t)[0][:, 0, :v]
+        return out
+
+    with torch.no_grad():
+        fwd = main.run(f"{HYMBA}_window", lambda: lm.M.forward(
+            params, cfg, toks)[0][..., :v], phase=17)
+        t0 = time.perf_counter()
+        dec = main.run(f"{HYMBA}_window", decode_all, phase=17)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        plain = lm.M.forward(params, cfg_ref, toks)[0][..., :v]
+    pos = torch.arange(WINDOW_TOKENS, device="cuda")
+    diff = (dec - fwd).abs().amax(-1)[0]
+    err_in, err_past = float(diff[pos < cfg.window].max()), \
+        float(diff[pos >= cfg.window].max())
+    err_plain = float((fwd - plain).abs().max())
+    launches = main.counts[(17, f"{HYMBA}_window")]["flash_attention"]
+    log(f"  (b) {WINDOW_TOKENS} tokens, window {cfg.window}: decode vs forward "
+        f"max abs logit diff {err_in:.3g} at positions below {cfg.window}, "
+        f"{err_past:.3g} past it; forward kernel vs plain {err_plain:.3g} "
+        f"(limit 2e-3); {WINDOW_TOKENS} decode steps in {t_dec:.2f} s; "
+        f"flash_attention {launches} launches ({WINDOW_LAYERS} for the "
+        f"forward, {WINDOW_LAYERS} a decode step)")
+    if max(err_in, err_past, err_plain) > 2e-3 or not torch.isfinite(fwd).all():
+        raise AssertionError(f"(b) {HYMBA}: logits past the window differ "
+                             f"({err_in}, {err_past}, {err_plain})")
+    if launches != WINDOW_LAYERS * (WINDOW_TOKENS + 1):
+        raise AssertionError(f"(b): {launches} flash_attention launches")
+    del params, fwd, dec, plain
+    torch.cuda.empty_cache()
+
+
+def mamba_train_share(lm, cfg, step_s):
+    """H14 in training: one ``mamba_apply`` forward and backward at the
+    training shape (CUDA events, eager), its (T, B, ED, n) scan
+    intermediates' size, and layers x (2 forwards + 1 backward, remat
+    "full") against the median step."""
+    b, s = TRAIN_SHAPE[HYMBA]
+    gen = torch.Generator("cuda").manual_seed(172)
+    mamba = lm.S.mamba_init(gen, cfg)
+    mamba.requires_grad_(True)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda",
+                    requires_grad=True)
+    weights = list(mamba.parameters())
+    fwd = time_ms(lambda: lm.S.mamba_apply(mamba, x, cfg), 5)
+    both = time_ms(lambda: torch.autograd.grad(
+        lm.S.mamba_apply(mamba, x, cfg)[0].sum(), [x] + weights), 5)
+    ed, n = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim
+    share = cfg.n_layers * (fwd + both) / (step_s * 1e3)
+    log(f"  (c) H14: mamba_apply at (B {b}, T {s}) forward {fwd:.3f} ms, "
+        f"forward + backward {both:.3f} ms (CUDA events); one (T, B, ED, n) "
+        f"float32 scan tensor is {s * b * ed * n * 4 / 1e9:.3f} GB; "
+        f"{cfg.n_layers} layers x (forward + forward and backward) = "
+        f"{100 * share:.1f} % of the median step")
+    return share
+
+
+def train_hymba(main, lm, tm, held):
+    """(c): hymba-1.5b at 4 layers, B 4 x S 512, remat "full", 5 steps
+    through ``Trainer``; loss and grads against the plain version."""
+    cfg = dataclasses.replace(tm.get_config(HYMBA), n_layers=HYMBA_TRAIN_LAYERS)
+    med = train_family(main, tm, HYMBA, "(c)", held, cfg=cfg, phase=17,
+                       label=LABEL17)
+    mamba_train_share(lm, cfg, med)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return med
+
+
+def seamless_prompts(vocab: int):
+    """(d)'s teacher-forced prompts: (a)'s requests' prompts, 16 new tokens
+    each."""
+    return [p for p, _ in short_requests(vocab)]
+
+
+def greedy_loop(lm, params, cfg, frames, prompts, max_new, margins=None):
+    """``init_cache(enc_memory_len=F)``, ``prefill_encoder`` and then one
+    ``decode_step`` for all rows a position: row r is fed its prompt, then
+    its greedy tokens, until it has ``max_new`` of them.  Returns (tokens a
+    row, per-step device ms, wall s); ``margins``, if given, takes each
+    generated token's top-2 logit margin."""
+    b = len(prompts)
+    steps = max(len(p) for p in prompts) + max_new - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = lm.M.init_cache(cfg, b, steps, device="cuda",
+                            enc_memory_len=frames.shape[1])
+    cache = lm.M.prefill_encoder(params, cfg, frames, cache)
+    out, events = [[] for _ in range(b)], []
+    feed = np.array([p[0] for p in prompts], np.int64)
+    for t in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = lm.M.decode_step(
+            params, cfg, cache, torch.as_tensor(feed[:, None], device="cuda"), t)
+        stop.record()
+        events.append((start, stop))
+        logits = logits[:, 0, : cfg.vocab]
+        top = logits.topk(2, dim=-1)
+        best = top.indices[:, 0].cpu().numpy()
+        gap = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
+        for r, p in enumerate(prompts):
+            if t >= len(p) - 1 and len(out[r]) < max_new:
+                out[r].append(int(best[r]))
+                if margins is not None:
+                    margins[(r, len(out[r]) - 1)] = float(gap[r])
+            feed[r] = p[t + 1] if t + 1 < len(p) else (out[r][-1] if out[r]
+                                                       else 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [(r, toks) for r, toks in enumerate(out)], \
+        [a.elapsed_time(z) for a, z in events], wall
+
+
+def cross_kv_share(params, cfg, frames, step_ms):
+    """H15: the memory's K and V projections that every decode step redoes
+    in every layer (device ms of one layer's two einsums, a CUDA graph),
+    times the layers, against the median decode step."""
+    xattn = params.layers[0].xattn
+    memory = frames @ params.frontend_adapter  # the memory's shape
+
+    def project():
+        torch.einsum("bsd,dhk->bhsk", memory, xattn.wk)
+        torch.einsum("bsd,dhk->bhsk", memory, xattn.wv)
+
+    with torch.no_grad():
+        ms = device_ms(project)
+    total = ms * cfg.n_layers
+    b, f = memory.shape[:2]
+    flops = 2 * 2 * b * f * cfg.d_model * cfg.n_kv_heads * cfg.head_dim
+    log(f"  (d) H15: the memory's K/V projection {ms:.5f} ms on the device a "
+        f"layer ({flops / 1e9:.2f} GFLOP at B {b}, F {f}), {total:.4f} ms a "
+        f"step over {cfg.n_layers} layers: {100 * total / step_ms:.1f} % of "
+        f"the median decode step")
+    return total
+
+
+def train_steps(main, tm, cfg, path, shape, n_frontend, tag, held):
+    """5 steps of ``loss_fn`` under autograd and the port's AdamW on ``cfg``
+    at ``shape`` with ``n_frontend`` seeded frames or patches (the
+    reference's ``SyntheticLMDataset`` has no frontend, so ``Trainer`` is
+    not used): finite losses, flash launches a step, median step, tokens/s,
+    peak memory; then loss and grads against the plain version."""
+    from repro_torch.optim import linear_warmup_cosine, make_optimizer
+
+    b, s = shape
+    torch.cuda.reset_peak_memory_stats()
+    params = tm.M.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                              "cuda")
+    params.requires_grad_(True)
+    named = dict(params.named_parameters())
+    opt_init, opt_update = make_optimizer(
+        lr_fn=linear_warmup_cosine(3e-4, 1, FAMILY_TRAIN_STEPS),
+        weight_decay=0.1, clip_norm=1.0)
+    state = opt_init(named)
+    data = tm.SyntheticLMDataset(cfg.vocab, s, b, seed=0)
+    frames = frontend_embeddings(cfg, b, n_frontend, seed=0)
+    n_params = sum(p.numel() for p in named.values())
+    log(f"{LABEL17} {tag} {cfg.name} at {cfg.n_encoder_layers} + "
+        f"{cfg.n_layers} layers: {n_params:,} params, "
+        f"{16 * n_params / 1e9:.2f} GB of params, grads, m and v; remat "
+        f"{cfg.remat!r}, B x S {shape} + {n_frontend} frontend rows")
+
+    def step(i):
+        batch = {k: torch.as_tensor(x, device="cuda")
+                 for k, x in data.batch_at(i).items()}
+        batch["frontend"] = frames
+        loss, _ = tm.M.loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True, materialize_grads=True)
+        opt_update(named, dict(zip(named, grads)), state)
+        return float(loss.detach())
+
+    def run():
+        hist = []
+        for i in range(FAMILY_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss = step(i)
+            hist.append((i + 1, {"loss": loss,
+                                 "step_time_s": time.perf_counter() - t0}))
+        return hist
+
+    hist = main.run(path, run, phase=17)
+    med, per_step = report_steps(tag, shape, hist, main.counts[(17, path)],
+                                 "flash_attention", 2, held)
+    want = 2 * (cfg.n_encoder_layers + cfg.n_layers * (
+        2 if cfg.n_encoder_layers else 1))
+    if per_step != want:
+        raise AssertionError(f"{tag}: {per_step} flash_attention launches a "
+                             f"step, expected {want}")
+    del params, named, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_grads(tm, cfg.name, 1e-5, 1e-3, tag=tag, cfg=cfg, shape=shape,
+                n_frontend=n_frontend)
+    return med
+
+
+def seamless(main, lm, tm, held):
+    """(d): seamless-m4t-large-v2 at full depth: the encoder over 128
+    frames, then a greedy decode loop on the kernels and on the plain
+    version; teacher-forced logits against ``forward``; then 2 + 2 layers
+    trained."""
+    from repro_torch.configs.registry import frontend_len
+
+    cfg = lm.get_config(SEAMLESS)
+    cfg_ref = dataclasses.replace(cfg, attn_impl="ref")
+    n_frames = frontend_len(cfg, SERVE_CONFIG["max_len"])
+    torch.cuda.reset_peak_memory_stats()
+    params = family_params(lm, cfg, "(d)", label=LABEL17)
+    prompts = seamless_prompts(cfg.vocab)
+    frames = frontend_embeddings(cfg, len(prompts), n_frames, seed=173)
+    with torch.no_grad():
+        main.run(f"{SEAMLESS}_encoder", lambda: lm.M.prefill_encoder(
+            params, cfg, frames, lm.M.init_cache(
+                cfg, len(prompts), 1, device="cuda",
+                enc_memory_len=n_frames)), phase=17)
+    done, step_ms, wall = main.run(SEAMLESS, lambda: greedy_loop(
+        lm, params, cfg, frames, prompts, SHORT_MAX_NEW), phase=17)
+    enc = main.counts[(17, f"{SEAMLESS}_encoder")]["flash_attention"]
+    dec = main.counts[(17, SEAMLESS)]["flash_attention"]
+    per_step = (dec - cfg.n_encoder_layers) / len(step_ms)
+    n_tok = sum(len(t) for _, t in done)
+    med = float(np.median(step_ms))
+    log(f"  (d) {len(prompts)} rows x {n_frames} frames: {len(step_ms)} decode "
+        f"steps, {n_tok} greedy tokens in {wall:.3f} s = {n_tok / wall:.2f} "
+        f"tokens/s (encoder included); median step {med:.4f} ms (CUDA events;"
+        f" min {min(step_ms):.4f}, max {max(step_ms):.4f}); flash_attention "
+        f"{enc} in the encoder, {per_step:g} a decode step")
+    if enc != cfg.n_encoder_layers or per_step != 2 * cfg.n_layers:
+        raise AssertionError(f"(d): flash launches {enc} in the encoder and "
+                             f"{per_step} a step")
+    margins = {}
+    done_ref, step_ref, _ = greedy_loop(lm, params, cfg_ref, frames, prompts,
+                                        SHORT_MAX_NEW, margins)
+    log(f"  (d) plain: median step {float(np.median(step_ref)):.4f} ms; "
+        f"smallest top-2 logit margin {min(margins.values()):.4g}")
+    tokens_match(SEAMLESS, "(d)", done, done_ref, margins)
+    toks = teacher_tokens(cfg.vocab)
+    with torch.no_grad():
+        full = lm.M.forward(params, cfg, toks, frontend=frames)[0][..., :cfg.vocab]
+        cache = lm.M.prefill_encoder(params, cfg, frames, lm.M.init_cache(
+            cfg, toks.shape[0], toks.shape[1], device="cuda",
+            enc_memory_len=n_frames))
+        steps = torch.cat([lm.M.decode_step(params, cfg, cache,
+                                            toks[:, t:t + 1], t)[0]
+                           for t in range(toks.shape[1])], 1)[..., :cfg.vocab]
+    err = float((steps - full).abs().max())
+    log(f"  (d) teacher-forced decode logits against forward: max abs diff "
+        f"{err:.3g} over {tuple(full.shape)} (limit 2e-3)")
+    if err > 2e-3 or not torch.isfinite(full).all():
+        raise AssertionError(f"(d) {SEAMLESS}: decode differs from forward "
+                             f"by {err}")
+    cross_kv_share(params, cfg, frames, med)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  (d) peak device memory {(peak - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held")
+    del params, cache, full, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_cfg = dataclasses.replace(cfg, n_layers=SEAMLESS_TRAIN_LAYERS,
+                                    n_encoder_layers=SEAMLESS_TRAIN_LAYERS)
+    return med, train_steps(main, tm, train_cfg, f"{SEAMLESS}_train",
+                            TRAIN_SHAPE[SEAMLESS],
+                            frontend_len(cfg, TRAIN_SHAPE[SEAMLESS][1]), "(d)",
+                            held)
+
+
+def internvl(main, lm, tm, held):
+    """(e): internvl2-26b at 8 of its 48 layers serves (a)'s requests (text
+    only) on the kernels and on the plain version; a forward with 256
+    patches against the plain version; 2 layers trained."""
+    from repro_torch.configs.registry import frontend_len
+
+    cfg = dataclasses.replace(lm.get_config(INTERNVL),
+                              n_layers=INTERNVL_SERVE_LAYERS)
+    n_patches = frontend_len(cfg, SERVE_CONFIG["max_len"])
+    log(f"{LABEL17} (e) depth cut: {INTERNVL} at {cfg.n_layers} of its 48 "
+        f"layers (48 float32 layers are 75 GB); widths as published (d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab})")
+    torch.cuda.reset_peak_memory_stats()
+    params = family_params(lm, cfg, "(e)", label=LABEL17)
+    reqs = short_requests(cfg.vocab)
+    done, step_ms = family_serve(main, lm, params, cfg, INTERNVL, "(e)",
+                                 phase=17, requests=reqs)
+    cfg_ref = dataclasses.replace(cfg, attn_impl="ref")
+    done_ref, _, step_ref, margins = serve_once(
+        lm, params, cfg_ref, record_margins=True, requests=reqs)
+    log(f"  (e) plain: median decode step {float(np.median(step_ref)):.4f} ms;"
+        f" smallest top-2 logit margin {min(margins.values()):.4g}")
+    tokens_match(INTERNVL, "(e)", done, done_ref, margins)
+    b, s = INTERNVL_FORWARD
+    gen = torch.Generator("cuda").manual_seed(174)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda")
+    patches = frontend_embeddings(cfg, b, n_patches, seed=174)
+    with torch.no_grad():
+        got = main.run(f"{INTERNVL}_forward", lambda: lm.M.forward(
+            params, cfg, toks, frontend=patches)[0][..., :cfg.vocab], phase=17)
+        want = lm.M.forward(params, cfg_ref, toks,
+                            frontend=patches)[0][..., :cfg.vocab]
+    err = float((got - want).abs().max())
+    log(f"  (e) forward, {s} text tokens after {n_patches} patches, B {b}: "
+        f"logits {tuple(got.shape)} (text only), kernels vs plain max abs "
+        f"diff {err:.3g} (limit 2e-3)")
+    if err > 2e-3 or got.shape[1] != s or not torch.isfinite(got).all():
+        raise AssertionError(f"(e) {INTERNVL}: forward differs by {err}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  (e) peak device memory {(peak - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held")
+    med = float(np.median(step_ms))
+    del params, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_cfg = dataclasses.replace(cfg, n_layers=INTERNVL_TRAIN_LAYERS)
+    return med, train_steps(main, tm, train_cfg, f"{INTERNVL}_train",
+                            TRAIN_SHAPE[INTERNVL], n_patches, "(e)", held)
+
+
+def families2_kernel_times(fa_ops, fa_ref):
+    """(f): flash_attention at the shapes this phase puts on a path, each
+    checked against its plain version and timed as phase 15 (e) times its
+    shapes; SDPA over the same visible keys as the library call (the
+    window's keys for hymba's decode)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    gen = torch.Generator("cuda").manual_seed(175)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    hb, hs = TRAIN_SHAPE[HYMBA]
+    sb, ss = TRAIN_SHAPE[SEAMLESS]
+    ib, is_ = TRAIN_SHAPE[INTERNVL]
+    f = max(64, SERVE_CONFIG["max_len"] // 4)  # frontend_len at S 512
+    cut = WINDOW_TOKENS - 1024  # the window's first key at (b)'s last step
+    nc = dict(causal=False)
+    cases = {
+        "flash_attention_hymba_decode": (
+            (randn(8, 25, 1, 64), randn(8, 5, 1152, 64), randn(8, 5, 1152, 64)),
+            dict(window=1024, q_offset=WINDOW_TOKENS - 1, kv_len=WINDOW_TOKENS),
+            f"hymba decode B=8 Hq=25 Hkv=5 D=64 Skv=1152 kv_len="
+            f"{WINDOW_TOKENS} window 1024 (keys {cut}-{WINDOW_TOKENS - 1})",
+            lambda q, k, v: sdpa(q, k[:, :, cut:WINDOW_TOKENS],
+                                 v[:, :, cut:WINDOW_TOKENS], enable_gqa=True)),
+        "flash_attention_hymba_train": (
+            (randn(hb, 25, hs, 64), randn(hb, 5, hs, 64), randn(hb, 5, hs, 64)),
+            dict(window=1024), f"hymba training prefill B={hb} Hq=25 Hkv=5 "
+            f"S={hs} D=64 causal window 1024 float32",
+            lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True)),
+        "flash_attention_seamless_encoder": (
+            (randn(sb, 16, f, 64), randn(sb, 16, f, 64), randn(sb, 16, f, 64)),
+            nc, f"seamless encoder B={sb} H=16/16 S={f} D=64 non-causal", None),
+        "flash_attention_cross_prefill": (
+            (randn(sb, 16, ss, 64), randn(sb, 16, f, 64), randn(sb, 16, f, 64)),
+            nc, f"seamless cross prefill B={sb} H=16/16 Sq={ss} Skv={f} D=64 "
+            f"non-causal", None),
+        "flash_attention_cross_decode": (
+            (randn(8, 16, 1, 64), randn(8, 16, f, 64), randn(8, 16, f, 64)),
+            nc, f"seamless cross decode B=8 H=16/16 Sq=1 Skv={f} D=64 "
+            f"non-causal", None),
+        "flash_attention_internvl_decode": (
+            (randn(8, 48, 1, 128), randn(8, 8, 512, 128), randn(8, 8, 512, 128)),
+            dict(q_offset=93, kv_len=94), "internvl decode B=8 Hq=48 Hkv=8 "
+            "D=128 Skv=512 kv_len=94", None),
+        "flash_attention_internvl_train": (
+            (randn(ib, 48, is_ + 256, 128), randn(ib, 8, is_ + 256, 128),
+             randn(ib, 8, is_ + 256, 128)),
+            {}, f"internvl training prefill B={ib} Hq=48 Hkv=8 S={is_ + 256} "
+            f"(256 patches + {is_} text) D=128 causal float32", None),
+    }
+    err, tim = 0.0, {}
+    for name, ((q, k, v), kw, shape, library) in cases.items():
+        lib = None if library is None else functools.partial(library, q, k, v)
+        e, tim[name] = time_flash_case(fa_ops, fa_ref, name, q, k, v, kw,
+                                       shape, lib)
+        err = max(err, e)
+    return err, tim
+
+
+def phase_families2(main, fa_ops, fa_ref, stores):
+    """Phase 17: hymba-1.5b, seamless-m4t-large-v2 and internvl2-26b at
+    their published widths, (a)-(f)."""
+    free_earlier_phases(stores)
+    held = torch.cuda.memory_allocated()
+    log(f"{LABEL17} device memory held at the start: {held / 2**30:.3f} GiB")
+    lm, tm, parts = lm_modules(), train_modules(), {}
+    for part, fn in (("a", lambda: serve_hymba(main, lm)),
+                     ("b", lambda: hymba_window(main, lm)),
+                     ("c", lambda: train_hymba(main, lm, tm, held)),
+                     ("d", lambda: seamless(main, lm, tm, held)),
+                     ("e", lambda: internvl(main, lm, tm, held))):
+        t0 = time.perf_counter()
+        fn()
+        parts[part] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log(f"{LABEL17} (f) flash_attention at this phase's shapes")
+    err, tim = families2_kernel_times(fa_ops, fa_ref)
+    parts["f"] = time.perf_counter() - t0
+    log(f"  phase 17 parts (s): { {k: round(v, 1) for k, v in parts.items()} }")
+    return err, tim
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases",
-                        default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+                        default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                         help="comma-separated phase numbers to run")
     parser.add_argument("--scale", type=float, default=1.0,
                         help="common factor on the scale graph's (and the "
@@ -4593,6 +5206,15 @@ def main(argv=None) -> int:
         timings.update(tim)
         log(f"  phase 16: {time.perf_counter() - t0:.1f} s, launches "
             f"{ {path: c for (n, path), c in main.counts.items() if n == 16} }")
+    if 17 in phases:
+        main.phase = 17
+        t0 = time.perf_counter()
+        err, tim = phase_families2(main, fa_ops, fa_ref, stores)
+        max_err["flash_attention"] = max(max_err.get("flash_attention", 0.0),
+                                         err)
+        timings.update(tim)
+        log(f"  phase 17: {time.perf_counter() - t0:.1f} s, launches "
+            f"{ {path: c for (n, path), c in main.counts.items() if n == 17} }")
     launches = {k: sum(c[k] for c in main.counts.values()) for k in main.read()}
     if 8 in phases:
         log(f"[8 counts] main-path launches per (phase, path): {main.counts}; "
@@ -4641,7 +5263,16 @@ def main(argv=None) -> int:
                     (15, "minicpm3-4b_naive"): ("flash_attention",),
                     (15, "minicpm3-4b_train"): ("flash_attention",),
                     (16, "deepseek-v3-671b_naive"): ("flash_attention",),
-                    (16, "deepseek-v3-671b_train"): ("flash_attention",)}
+                    (16, "deepseek-v3-671b_train"): ("flash_attention",),
+                    (17, "hymba-1.5b"): ("flash_attention",),
+                    (17, "hymba-1.5b_window"): ("flash_attention",),
+                    (17, "hymba-1.5b_train"): ("flash_attention",),
+                    (17, "seamless-m4t-large-v2_encoder"): ("flash_attention",),
+                    (17, "seamless-m4t-large-v2"): ("flash_attention",),
+                    (17, "seamless-m4t-large-v2_train"): ("flash_attention",),
+                    (17, "internvl2-26b"): ("flash_attention",),
+                    (17, "internvl2-26b_forward"): ("flash_attention",),
+                    (17, "internvl2-26b_train"): ("flash_attention",)}
         for (num, entry), names in required.items():
             for name in names:
                 if num in phases and main.counts[(num, entry)][name] == 0:

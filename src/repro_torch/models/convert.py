@@ -4,11 +4,14 @@ and the port's.
 The reference keeps params as a pytree with the layer weights stacked on a
 leading axis (``tree["layers"]["attn"]["wq"]`` is (L, d, h, hd)); the port
 keeps one module per layer in the same per-layer layout, named as
-``LM.named_parameters()`` names them (``"layers.3.attn.wq"``).  Two stacks
-are stacked so: ``layers`` and, with ``first_k_dense``, ``dense_layers``
-(``"dense_layers.0.ffn.w_gate"``); the MTP head's one layer, ``mtp_layer``,
-is an unstacked subtree in both (``"mtp_layer.attn.wq"`` is
-``tree["mtp_layer"]["attn"]["wq"]``), beside the top-level ``mtp_proj``.  The
+``LM.named_parameters()`` names them (``"layers.3.attn.wq"``).  Three
+stacks are stacked so: ``layers``, with ``first_k_dense`` ``dense_layers``
+(``"dense_layers.0.ffn.w_gate"``) and with an encoder ``encoder``
+(``"encoder.0.attn.wq"``); the MTP head's one layer, ``mtp_layer``, is an
+unstacked subtree in both (``"mtp_layer.attn.wq"`` is
+``tree["mtp_layer"]["attn"]["wq"]``), beside the top-level ``mtp_proj``.
+A hybrid layer holds ``mamba``, a decoder_cross layer ``xattn`` and
+``norm_x``; ``frontend_adapter`` and ``enc_norm`` are top-level.  The
 ``*_from_numpy`` functions take the tree with numpy (or array-like)
 leaves, e.g. ``jax.tree.map(np.asarray, params)``, and copy it to
 ``device`` (None means CUDA); the ``*_to_numpy`` functions give that tree
@@ -27,20 +30,27 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import GQA, MLA, MoE, SwiGLU
-from repro_torch.models.model import LM, Layer, model_kind
-from repro_torch.models.ssm import RWKV6
+from repro_torch.models.model import LM, Layer, _main_kind
+from repro_torch.models.ssm import RWKV6, Mamba
 
 _LAYER_KEYS = {"dense": {"norm1", "norm2", "attn", "ffn"},
                "moe": {"norm1", "norm2", "attn", "ffn"},
-               "rwkv": {"norm1", "norm2", "rwkv"}}
+               "rwkv": {"norm1", "norm2", "rwkv"},
+               "hybrid": {"norm1", "norm2", "attn", "mamba", "ffn"},
+               "encoder": {"norm1", "norm2", "attn", "ffn"},
+               "decoder_cross": {"norm1", "norm2", "norm_x", "attn", "xattn",
+                                 "ffn"}}
 
 
 def _stacks(cfg: ModelConfig) -> dict[str, tuple[str, int]]:
-    """The stacked layer trees: name -> (layer kind, depth)."""
+    """The stacked layer trees, in ``named_parameters`` order: name ->
+    (layer kind, depth)."""
     out = {}
+    if cfg.n_encoder_layers:
+        out["encoder"] = ("encoder", cfg.n_encoder_layers)
     if cfg.first_k_dense:
         out["dense_layers"] = ("dense", cfg.first_k_dense)
-    out["layers"] = (model_kind(cfg), cfg.n_layers - cfg.first_k_dense)
+    out["layers"] = (_main_kind(cfg), cfg.n_layers - cfg.first_k_dense)
     return out
 
 
@@ -83,23 +93,38 @@ def _layer(cfg: ModelConfig, kind: str, lt: dict, i, dev, where: str) -> Layer:
     norms = _tensor(_at(lt["norm1"], i), dev), _tensor(_at(lt["norm2"], i), dev)
     if kind == "rwkv":
         return Layer(*norms, rwkv=_module(RWKV6, lt["rwkv"], i, dev))
+    extra = {}
+    if kind == "hybrid":
+        extra["mamba"] = _module(Mamba, lt["mamba"], i, dev)
+    if kind == "decoder_cross":
+        extra["xattn"] = _module(GQA, lt["xattn"], i, dev)
+        extra["norm_x"] = _tensor(_at(lt["norm_x"], i), dev)
     attn = _module(MLA if cfg.mla is not None else GQA, lt["attn"], i, dev)
     ffn = (_moe(cfg, lt["ffn"], i, dev) if kind == "moe"
            else _module(SwiGLU, lt["ffn"], i, dev))
-    return Layer(*norms, attn=attn, ffn=ffn)
+    return Layer(*norms, attn=attn, ffn=ffn, **extra)
+
+
+def _top_params(cfg: ModelConfig) -> list[str]:
+    """The LM's own (unstacked) tensors, in ``named_parameters`` order."""
+    return (["embed", "final_norm"]
+            + ([] if cfg.tie_embeddings else ["unembed"])
+            + (["mtp_proj"] if cfg.mtp else [])
+            + (["frontend_adapter"] if cfg.frontend != "none" else [])
+            + (["enc_norm"] if cfg.n_encoder_layers else []))
 
 
 def _top_keys(cfg: ModelConfig) -> set:
-    return ({"embed", "final_norm"} | set(_stacks(cfg))
-            | (set() if cfg.tie_embeddings else {"unembed"})
-            | ({"mtp_layer", "mtp_proj"} if cfg.mtp else set()))
+    return (set(_top_params(cfg)) | set(_stacks(cfg))
+            | ({"mtp_layer"} if cfg.mtp else set()))
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> LM:
     """The reference's ``init_params`` tree -> the port's ``LM`` (a moe
     layer's ``ffn`` holds the nested ``shared`` tree and the optional
     ``router_bias``; deepseek-v3's ``dense_layers``, ``mtp_layer`` and
-    ``mtp_proj`` come across beside ``layers``)."""
+    ``mtp_proj``, and the ``encoder`` stack, ``enc_norm`` and
+    ``frontend_adapter`` come across beside ``layers``)."""
     dev = resolve_device(device)
     top = _top_keys(cfg)
     if set(tree) != top:
@@ -113,17 +138,21 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> LM:
         mtp = dict(mtp_layer=_layer(cfg, "dense", tree["mtp_layer"], None, dev,
                                     "mtp_layer"),
                    mtp_proj=_tensor(tree["mtp_proj"], dev))
+    front = {name: _tensor(tree[name], dev)
+             for name in ("frontend_adapter", "enc_norm") if name in top}
     return LM(_tensor(tree["embed"], dev), stacks["layers"],
               _tensor(tree["final_norm"], dev),
               None if cfg.tie_embeddings else _tensor(tree["unembed"], dev),
-              dense_layers=stacks.get("dense_layers", ()), **mtp)
+              dense_layers=stacks.get("dense_layers", ()),
+              encoder=stacks.get("encoder", ()), **mtp, **front)
 
 
 def cache_from_numpy(tree, device=None):
     """The reference's ``init_cache`` tree (or one a decode returned) -> the
-    port's cache: the same nested dict (GQA's k/v, MLA's ckv/k_rope or
-    RWKV's states, under ``layers`` and, with a first_k_dense stack,
-    ``dense_layers``), each leaf a tensor."""
+    port's cache: the same nested dict (GQA's k/v, MLA's ckv/k_rope, RWKV's
+    states or hybrid's attn + mamba, under ``layers`` and, with a
+    first_k_dense stack, ``dense_layers``; an encdec's ``memory``), each
+    leaf a tensor."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {name: cache_from_numpy(t, dev) for name, t in tree.items()}
@@ -187,12 +216,7 @@ def state_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
         return node
 
     # the LM's own tensors first, then its modules, as named_parameters
-    named = {"embed": leaf(tree["embed"]),
-             "final_norm": leaf(tree["final_norm"])}
-    if not cfg.tie_embeddings:
-        named["unembed"] = leaf(tree["unembed"])
-    if cfg.mtp:
-        named["mtp_proj"] = leaf(tree["mtp_proj"])
+    named = {name: leaf(tree[name]) for name in _top_params(cfg)}
     for stack, (kind, n) in _stacks(cfg).items():
         for i in range(n):
             for path in _layer_names(cfg, kind):
@@ -210,10 +234,17 @@ def _layer_names(cfg: ModelConfig, kind: str) -> list[tuple[str, ...]]:
     norms = [("norm1",), ("norm2",)]
     if kind == "rwkv":
         return norms + [("rwkv", n) for n in RWKV6.NAMES]
+    if kind == "decoder_cross":
+        norms.append(("norm_x",))
     attn = MLA.NAMES if cfg.mla is not None else GQA.NAMES
     names = norms + [("attn", n) for n in attn]
     if kind != "moe":
-        return names + [("ffn", n) for n in SwiGLU.NAMES]
+        names += [("ffn", n) for n in SwiGLU.NAMES]
+        if kind == "hybrid":
+            names += [("mamba", n) for n in Mamba.NAMES]
+        if kind == "decoder_cross":
+            names += [("xattn", n) for n in GQA.NAMES]
+        return names
     names += [("ffn", n) for n in MoE.NAMES]
     if cfg.moe.router_aux_free_bias:
         names.append(("ffn", "router_bias"))
@@ -228,13 +259,13 @@ def params_to_numpy(cfg: ModelConfig, lm: LM) -> dict:
     return state_to_numpy(cfg, dict(lm.named_parameters()))
 
 
-STACKED = ("layers", "dense_layers")
+STACKED = ("layers", "dense_layers", "encoder")
 
 
 def stacked_groups(names) -> list[list[str]]:
     """Param names grouped by the reference's stacked leaf they slice
     (``"layers.0.attn.wq"`` and ``"layers.1.attn.wq"`` together, and so
-    for ``dense_layers``), in first appearance order: what a per-tensor
+    for ``dense_layers`` and ``encoder``), in first appearance order: what a per-tensor
     statistic of the reference spans.  Every other name, ``mtp_layer``'s
     unstacked leaves too, is a group of its own."""
     groups: dict = {}

@@ -86,6 +86,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5):
+    """The reference's ``layer_norm``: mean and (biased) variance in
+    float32.  Exported as the reference's is; no model path calls it (the
+    encoder normalises with ``rms_norm``)."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0):
     """x: (..., S, D) with D even; positions (S,) or (..., S)."""
     half = x.shape[-1] // 2

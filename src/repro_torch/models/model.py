@@ -1,6 +1,6 @@
 """Model assembly of the port: init, the training/prefill ``forward``, the
-next-token ``loss_fn`` and one-token ``decode_step`` for the dense (GQA and
-MLA), MoE and RWKV families.
+next-token ``loss_fn`` and one-token ``decode_step`` for every family of
+the reference: dense (GQA and MLA), MoE, RWKV, hybrid, encdec and vlm.
 
 Layers run as a Python loop over a ``ModuleList`` (the reference scans
 params stacked on a layer axis).  ``cfg.remat`` wraps each layer as the
@@ -16,17 +16,32 @@ columns pinned to -1e30, as in the reference, so they never win an argmax
 nor enter the loss.
 
 Families: dense (GQA attention, or MLA where ``cfg.mla`` is set), moe (the
-same attention with the routed-expert FFN) and rwkv.  A moe layer's
-``dropped_frac`` passes out of the remat wrapper beside the hidden state,
-and ``forward``'s aux ``moe_dropped`` is its sum over the layers, as the
-reference's scan sums it.  deepseek-v3's extras: ``cfg.first_k_dense``
+same attention with the routed-expert FFN), rwkv, hybrid, encdec and vlm.
+A moe layer's ``dropped_frac`` passes out of the remat wrapper beside the
+hidden state, and ``forward``'s aux ``moe_dropped`` is its sum over the
+layers, as the reference's scan sums it.  deepseek-v3's extras: ``cfg.first_k_dense``
 leading dense layers (a SwiGLU at ``cfg.d_ff``) in ``dense_layers`` ahead
 of the ``n_layers - first_k_dense`` main layers, and with ``cfg.mtp`` the
 multi-token-prediction head (``mtp_proj`` and one dense ``mtp_layer``),
 whose logits ``forward`` returns as aux ``mtp_logits`` and whose loss
 ``loss_fn`` adds at weight 0.3; the head is a training one and never
-decodes.  Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP item: hybrid (A12 (b) 4), encdec (A12 (b) 5) and vlm (A12 (b) 6).
+decodes.
+
+hymba's hybrid layer runs attention and a Mamba branch (``ssm.py``) on the
+same normed input and averages them; its cache holds ``{"attn", "mamba":
+{"h", "conv"}}`` a layer.  seamless's encdec runs an ``encoder`` stack
+(non-causal attention + SwiGLU) over ``frontend @ frontend_adapter``,
+normed by ``enc_norm`` into the memory that each ``decoder_cross`` layer's
+``xattn`` (a second GQA, after ``norm_x``) attends to, non-causally; the
+cache adds ``memory`` (B, F, d), filled by ``prefill_encoder``, and every
+decode step projects the memory's K and V again in every layer, as the
+reference does (ROADMAP H15).  internvl's vlm prepends ``frontend @
+frontend_adapter`` to the text and cuts that prefix off before the final
+norm; its ``decode_step`` is text only, as the reference's ("prefix cache
+semantics").  The Mamba scan, the cross-attention projections and the
+prefix are plain torch on every device, as they are plain ``jnp`` in the
+reference; every attention call, the encoder's and the cross-attention's
+included, goes through ``attention_math``.
 """
 
 from __future__ import annotations
@@ -50,44 +65,49 @@ def vocab_padded(cfg: ModelConfig) -> int:
     return -(-cfg.vocab // VOCAB_MULTIPLE) * VOCAB_MULTIPLE
 
 
-_NOT_PORTED = {"hybrid": "A12 (b) 4", "encdec": "A12 (b) 5",
-               "vlm": "A12 (b) 6"}
 MTP_WEIGHT = 0.3  # the MTP loss's weight in the total, as the reference's
 
 
-def model_kind(cfg: ModelConfig) -> str:
-    """"dense" (GQA or MLA attention), "moe" or "rwkv": the kind of the
-    main stack (a ``first_k_dense`` stack and the MTP layer are "dense");
-    what is not ported yet raises, naming its ROADMAP item."""
-    if cfg.family in ("dense", "moe", "rwkv"):
-        return cfg.family
-    raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not "
-                              f"ported yet (ROADMAP item "
-                              f"{_NOT_PORTED[cfg.family]})")
+def _main_kind(cfg: ModelConfig) -> str:
+    """The kind of the main stack's layers: "dense" (GQA or MLA attention;
+    also the vlm family's), "moe", "rwkv", "hybrid" or "decoder_cross"
+    (encdec).  A ``first_k_dense`` stack and the MTP layer are "dense", an
+    encoder stack "encoder"."""
+    return {"rwkv": "rwkv", "hybrid": "hybrid", "moe": "moe",
+            "encdec": "decoder_cross"}.get(cfg.family, "dense")
 
 
 class Layer(nn.Module):
     """One block: ``norm1``/``norm2`` and either ``attn`` (GQA or MLA) +
     ``ffn`` (SwiGLU, or MoE in the moe family) or ``rwkv`` (time mix and
-    channel mix)."""
+    channel mix); a hybrid layer adds ``mamba``, a decoder_cross layer
+    ``norm_x`` and ``xattn`` (GQA over the encoder's memory)."""
 
-    def __init__(self, norm1, norm2, *, attn=None, ffn=None, rwkv=None):
+    def __init__(self, norm1, norm2, *, attn=None, ffn=None, rwkv=None,
+                 mamba=None, xattn=None, norm_x=None):
         super().__init__()
         self.norm1 = nn.Parameter(norm1, requires_grad=False)
         self.norm2 = nn.Parameter(norm2, requires_grad=False)
+        self.norm_x = (None if norm_x is None
+                       else nn.Parameter(norm_x, requires_grad=False))
         self.attn, self.ffn, self.rwkv = attn, ffn, rwkv
+        self.mamba, self.xattn = mamba, xattn
 
 
 class LM(nn.Module):
     """The params of one model: ``embed`` (V_pad, d), ``dense_layers`` (the
     ``first_k_dense`` stack, empty without one), ``layers``, ``final_norm``,
     unless the embeddings are tied ``unembed`` (d, V_pad), and with an MTP
-    head ``mtp_layer`` (one dense ``Layer``) and ``mtp_proj`` (2d, d)."""
+    head ``mtp_layer`` (one dense ``Layer``) and ``mtp_proj`` (2d, d).  With
+    a frontend (encdec, vlm) ``frontend_adapter`` (d, d); with an encoder
+    (encdec) the ``encoder`` stack and ``enc_norm`` (d,)."""
 
     def __init__(self, embed, layers, final_norm, unembed=None, *,
-                 dense_layers=(), mtp_layer=None, mtp_proj=None):
+                 dense_layers=(), mtp_layer=None, mtp_proj=None,
+                 frontend_adapter=None, encoder=(), enc_norm=None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
+        self.encoder = nn.ModuleList(encoder)
         self.dense_layers = nn.ModuleList(dense_layers)
         self.layers = nn.ModuleList(layers)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
@@ -96,6 +116,11 @@ class LM(nn.Module):
         self.mtp_layer = mtp_layer
         self.mtp_proj = (None if mtp_proj is None
                          else nn.Parameter(mtp_proj, requires_grad=False))
+        self.frontend_adapter = (
+            None if frontend_adapter is None
+            else nn.Parameter(frontend_adapter, requires_grad=False))
+        self.enc_norm = (None if enc_norm is None
+                         else nn.Parameter(enc_norm, requires_grad=False))
 
     @property
     def device(self) -> torch.device:
@@ -107,10 +132,16 @@ def _layer_init(generator, cfg: ModelConfig, kind: str, dtype) -> Layer:
     if kind == "rwkv":
         return Layer(ones, ones.clone(), rwkv=S.rwkv6_init(generator, cfg, dtype))
     attn_init = L.mla_init if cfg.mla is not None else L.gqa_init
-    attn = attn_init(generator, cfg, dtype)
-    ffn = (L.moe_init(generator, cfg, dtype) if kind == "moe"
-           else L.swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype))
-    return Layer(ones, ones.clone(), attn=attn, ffn=ffn)
+    extra = {"attn": attn_init(generator, cfg, dtype)}
+    if kind == "hybrid":
+        extra["mamba"] = S.mamba_init(generator, cfg, dtype)
+    if kind == "decoder_cross":
+        extra["xattn"] = L.gqa_init(generator, cfg, dtype)
+        extra["norm_x"] = ones.clone()
+    extra["ffn"] = (L.moe_init(generator, cfg, dtype) if kind == "moe"
+                    else L.swiglu_init(generator, cfg.d_model, cfg.d_ff,
+                                       dtype))
+    return Layer(ones, ones.clone(), **extra)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -119,7 +150,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     None) in the reference's shapes and scales.  ``device=None`` means
     CUDA.  The numbers differ from the reference's ``jax.random`` draws;
     tests carry reference params across with ``convert.params_from_numpy``."""
-    kind = model_kind(cfg)
+    kind = _main_kind(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
@@ -127,6 +158,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         raise ValueError(f"generator on {generator.device}, params on {dev}")
     vp = vocab_padded(cfg)
     embed = L.dense_init(generator, (vp, cfg.d_model), 1, dtype)
+    front = {}
+    if cfg.frontend != "none":
+        front["frontend_adapter"] = L.dense_init(
+            generator, (cfg.d_model, cfg.d_model), 0, dtype)
+    if cfg.n_encoder_layers:
+        front["encoder"] = [_layer_init(generator, cfg, "encoder", dtype)
+                            for _ in range(cfg.n_encoder_layers)]
+        front["enc_norm"] = L.zeros_init((cfg.d_model,), dtype,
+                                         generator.device, 1.0)
     dense = [_layer_init(generator, cfg, "dense", dtype)
              for _ in range(cfg.first_k_dense)]
     layers = [_layer_init(generator, cfg, kind, dtype)
@@ -139,20 +179,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         mtp = dict(mtp_layer=_layer_init(generator, cfg, "dense", dtype),
                    mtp_proj=L.dense_init(generator, (2 * cfg.d_model,
                                                      cfg.d_model), 0, dtype))
-    return LM(embed, layers, final_norm, unembed, dense_layers=dense, **mtp)
+    return LM(embed, layers, final_norm, unembed, dense_layers=dense, **mtp,
+              **front)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.float32, device=None) -> dict:
+               dtype=torch.float32, device=None,
+               enc_memory_len: int = 0) -> dict:
     """Zeroed decode cache, stacked on a leading layer axis as the
     reference's: GQA ``{"layers": {"attn": {"k", "v"}}}`` with k/v (L, B,
     Hkv, max_len, hd); MLA ``{"layers": {"attn": {"ckv", "k_rope"}}}`` with
     (L, B, max_len, kv_lora_rank) and (L, B, max_len, qk_rope_head_dim);
-    RWKV ``{"layers": {"wkv", "tm_prev", "cm_prev"}}``.  With a
-    ``first_k_dense`` stack, ``"layers"`` holds the main stack's
-    ``n_layers - first_k_dense`` and ``"dense_layers"`` the dense stack's
-    (the same per-layer tree).  ``device=None`` means CUDA."""
-    kind = model_kind(cfg)
+    RWKV ``{"layers": {"wkv", "tm_prev", "cm_prev"}}``; hybrid adds
+    ``"mamba": {"h" (L, B, ED, n) float32, "conv" (L, B, W - 1, ED)}``
+    beside ``"attn"``.  With a ``first_k_dense`` stack, ``"layers"`` holds
+    the main stack's ``n_layers - first_k_dense`` and ``"dense_layers"`` the
+    dense stack's (the same per-layer tree).  With an encoder, ``"memory"``
+    (B, enc_memory_len, d), zeros until ``prefill_encoder`` fills it.
+    ``device=None`` means CUDA."""
+    kind = _main_kind(cfg)
     dev = resolve_device(device)
     if kind == "rwkv":
         one = S.rwkv6_state_init(cfg, batch, dtype, "meta")
@@ -160,6 +205,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache_init = (L.mla_cache_init if cfg.mla is not None
                       else L.gqa_cache_init)
         one = {"attn": cache_init(cfg, batch, max_len, dtype, "meta")}
+        if kind == "hybrid":
+            one["mamba"] = S.mamba_state_init(cfg, batch, dtype, "meta")
 
     def stacked(tree, n):
         if isinstance(tree, dict):
@@ -169,6 +216,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     out = {"layers": stacked(one, cfg.n_layers - cfg.first_k_dense)}
     if cfg.first_k_dense:
         out["dense_layers"] = stacked(one, cfg.first_k_dense)
+    if cfg.n_encoder_layers:
+        out["memory"] = torch.zeros((batch, enc_memory_len, cfg.d_model),
+                                    dtype=dtype, device=dev)
     return out
 
 
@@ -180,10 +230,12 @@ def _layer_cache(tree, i: int):
 
 
 def _layer_apply(layer: Layer, x, cfg: ModelConfig, kind: str, *, impl: str,
-                 positions, cache=None, cache_pos=None):
+                 positions, cache=None, cache_pos=None, causal=True,
+                 memory=None):
     """One block -> (x, dropped): ``dropped`` is the MoE FFN's
     ``dropped_frac`` (a 0-d float32 tensor), None in the other kinds.  A
-    given layer cache is updated in place."""
+    given layer cache is updated in place.  ``memory``: the encoder's
+    output, which a decoder_cross layer attends to."""
     if kind == "rwkv":
         b, d = x.shape[0], cfg.d_model
         hd = cfg.rwkv.head_dim
@@ -212,13 +264,35 @@ def _layer_apply(layer: Layer, x, cfg: ModelConfig, kind: str, *, impl: str,
     a_out, _ = attn_apply(
         layer.attn, h, cfg, positions=positions,
         cache=cache["attn"] if cache else None, cache_pos=cache_pos,
-        causal=True, impl=impl)
+        causal=causal, impl=impl)
+    if kind == "hybrid":
+        m_out, m_state = S.mamba_apply(
+            layer.mamba, h, cfg, state=cache["mamba"] if cache else None)
+        a_out = 0.5 * (a_out + m_out)  # hymba: fused parallel heads
+        if cache is not None:
+            cache["mamba"]["h"].copy_(m_state["h"])
+            cache["mamba"]["conv"].copy_(m_state["conv"])
     x = x + a_out
+    if kind == "decoder_cross":
+        hx = L.rms_norm(x, layer.norm_x, cfg.norm_eps)
+        # cross-attention: queries from the decoder, K/V from the memory
+        x = x + _cross_attention(layer.xattn, hx, memory, impl)
     h2 = L.rms_norm(x, layer.norm2, cfg.norm_eps)
     if kind == "moe":
         f_out, aux = L.moe_apply(layer.ffn, h2, cfg)
         return x + f_out, aux["dropped_frac"]
     return x + L.swiglu_apply(layer.ffn, h2), None
+
+
+def _cross_attention(p: L.GQA, xq, memory, impl: str) -> torch.Tensor:
+    """GQA params reused for cross-attention: q from ``xq`` (B, Sq, d), K
+    and V projected from ``memory`` (B, F, d) on every call (no rope), then
+    non-causal attention over all F keys."""
+    q = torch.einsum("bsd,dhk->bhsk", xq, p.wq)
+    k = torch.einsum("bsd,dhk->bhsk", memory, p.wk)
+    v = torch.einsum("bsd,dhk->bhsk", memory, p.wv)
+    out = L.attention_math(q, k, v, impl, causal=False, window=None)
+    return torch.einsum("bhsk,hkd->bsd", out, p.wo)
 
 
 def _embed(params: LM, tokens) -> torch.Tensor:
@@ -263,31 +337,69 @@ def _rematted(cfg: ModelConfig, fn, *args):
                      f"or 'dots'")
 
 
-def forward(params: LM, cfg: ModelConfig, tokens, *, last_only: bool = False,
-            return_hidden: bool = False):
+def _frontend(params: LM, frontend) -> torch.Tensor:
+    """``frontend`` (B, F, d) stub embeddings, numpy or a tensor, through
+    ``frontend_adapter``."""
+    return torch.as_tensor(frontend, device=params.device) \
+        @ params.frontend_adapter
+
+
+def _encode(params: LM, cfg: ModelConfig, frontend, impl: str):
+    """The encoder stack (non-causal, under ``cfg.remat``) over the adapted
+    frames, then ``enc_norm``: the memory (B, F, d)."""
+    m = _frontend(params, frontend)
+    positions = torch.arange(m.shape[1], device=m.device)
+
+    def layer_fn(layer, h):
+        return _layer_apply(layer, h, cfg, "encoder", impl=impl,
+                            positions=positions, causal=False)[0].to(h.dtype)
+
+    for layer in params.encoder:
+        m = _rematted(cfg, layer_fn, layer, m)
+    return L.rms_norm(m, params.enc_norm, cfg.norm_eps)
+
+
+def forward(params: LM, cfg: ModelConfig, tokens, *, frontend=None,
+            last_only: bool = False, return_hidden: bool = False):
     """Training/prefill forward: tokens (B, S) -> (logits (B, S|1, V_pad)
     float32, aux), or with ``return_hidden`` the final-normed hidden state
     (B, S|1, d) in the logits' place (the chunked CE's input).  ``aux``:
     ``moe_dropped`` and, with an MTP head and neither ``last_only`` nor
-    ``return_hidden``, ``mtp_logits`` (B, S, V_pad).  Grads flow when grad
-    mode is on and the params require them."""
-    kind = model_kind(cfg)
+    ``return_hidden``, ``mtp_logits`` (B, S, V_pad).  ``frontend`` (B, F,
+    d): encdec's frames, which the encoder turns into the memory, or vlm's
+    patches, prepended to the text (its logits cover the text positions
+    only); both families need it.  Grads flow when grad mode is on and the
+    params require them."""
+    kind = _main_kind(cfg)
     impl = L.resolve_attn_impl(cfg)
     x = _embed(params, tokens)
+    memory, n_prefix = None, 0
+    if cfg.frontend != "none" and frontend is None:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family needs "
+                         f"frontend embeddings")
+    if cfg.n_encoder_layers:
+        memory = _encode(params, cfg, frontend, impl)
+    elif cfg.frontend != "none":
+        prefix = _frontend(params, frontend)
+        n_prefix = prefix.shape[1]
+        x = torch.cat([prefix, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
 
-    def layer_fn(layer_kind, layer, h):
+    def layer_fn(layer_kind, layer, h, memory):
         out, dropped = _layer_apply(layer, h, cfg, layer_kind, impl=impl,
-                                    positions=positions)
+                                    positions=positions, memory=memory)
         return out.to(h.dtype), dropped
 
     dropped = []
     for layer_kind, stack in (("dense", params.dense_layers),
                               (kind, params.layers)):
         for layer in stack:
-            x, layer_dropped = _rematted(cfg, layer_fn, layer_kind, layer, x)
+            x, layer_dropped = _rematted(cfg, layer_fn, layer_kind, layer, x,
+                                         memory)
             if layer_dropped is not None:
                 dropped.append(layer_dropped)
+    if cfg.frontend == "vision":
+        x = x[:, n_prefix:]  # text positions only
     h = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     if last_only:
         h = h[:, -1:]
@@ -375,7 +487,8 @@ def _full_ce(logits: torch.Tensor, labels: torch.Tensor):
 
 def loss_fn(params: LM, cfg: ModelConfig, batch: dict):
     """Masked next-token CE over ``batch["tokens"]`` and ``batch["labels"]``
-    (B, S), numpy or tensors; labels below 0 are masked out.  With an MTP
+    (B, S), numpy or tensors, and ``batch["frontend"]`` for the encdec and
+    vlm families; labels below 0 are masked out.  With an MTP
     head, its CE against the labels shifted by one (the last position
     masked) is added at weight 0.3, from the full MTP logits or, under
     ``ce_chunk``, streamed from its hidden state.  Returns (loss, metrics)
@@ -383,7 +496,8 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: dict):
     labels = torch.as_tensor(batch["labels"], device=params.device).long()
     if cfg.ce_chunk:
         # run the trunk only (skip _logits), then stream the CE
-        h, aux = forward(params, cfg, batch["tokens"], return_hidden=True)
+        h, aux = forward(params, cfg, batch["tokens"],
+                         frontend=batch.get("frontend"), return_hidden=True)
         lse, gold = _chunked_ce(params, cfg, h, labels)
         if cfg.mtp:
             positions = torch.arange(h.shape[1], device=h.device)
@@ -391,7 +505,8 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: dict):
                                 L.resolve_attn_impl(cfg), positions)
             mtp_ce = _chunked_ce(params, cfg, mtp_h, _shifted_labels(labels))
     else:
-        logits, aux = forward(params, cfg, batch["tokens"])
+        logits, aux = forward(params, cfg, batch["tokens"],
+                              frontend=batch.get("frontend"))
         lse, gold = _full_ce(logits, labels)
         if cfg.mtp:
             mtp_ce = _full_ce(aux["mtp_logits"], _shifted_labels(labels))
@@ -405,16 +520,27 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: dict):
 
 
 @torch.no_grad()
+def prefill_encoder(params: LM, cfg: ModelConfig, frontend, cache: dict):
+    """Enc-dec: run the encoder once over ``frontend`` (B, F, d) and return
+    the cache with its ``memory`` replaced by the result (in the cache's
+    dtype), as the reference's."""
+    memory = _encode(params, cfg, frontend, L.resolve_attn_impl(cfg))
+    return {**cache, "memory": memory.to(cache["memory"].dtype)}
+
+
+@torch.no_grad()
 def decode_step(params: LM, cfg: ModelConfig, cache: dict, tokens, pos):
     """One-token decode: tokens (B, 1), ``pos`` an int (the current length,
     shared by every row).  Returns (logits (B, 1, V_pad), cache), the cache
     updated in place: the ``first_k_dense`` stack's, then the main
-    stack's.  The MTP head does not decode."""
-    kind = model_kind(cfg)
+    stack's.  An encdec decoder reads ``cache["memory"]``; a vlm decodes
+    text only.  The MTP head does not decode."""
+    kind = _main_kind(cfg)
     impl = L.resolve_attn_impl(cfg)
     pos = int(pos)
     x = _embed(params, tokens)
     positions = pos + torch.arange(x.shape[1], device=x.device)
+    memory = cache.get("memory")
     for layer_kind, name, stack in (("dense", "dense_layers",
                                      params.dense_layers),
                                     (kind, "layers", params.layers)):
@@ -422,6 +548,6 @@ def decode_step(params: LM, cfg: ModelConfig, cache: dict, tokens, pos):
             x = _layer_apply(layer, x, cfg, layer_kind, impl=impl,
                              positions=positions,
                              cache=_layer_cache(cache[name], i),
-                             cache_pos=pos)[0].to(x.dtype)
+                             cache_pos=pos, memory=memory)[0].to(x.dtype)
     h = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits(params, cfg, h), cache

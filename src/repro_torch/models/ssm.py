@@ -1,8 +1,18 @@
-"""The RWKV-6 "Finch" block of the port: token shift, data-dependent decay
-time mix over the WKV recurrence (``kernels/rwkv6_wkv``), per-head group
-norm and the squared-ReLU channel mix.  Decode carries O(1) state per
-layer: the WKV state and the two token-shift carries.  The reference's
-Mamba branch (the hybrid family) is not ported yet (ROADMAP A12 (b) 4).
+"""State-space layers of the port: the Mamba selective scan (hymba's
+branch parallel to attention) and the RWKV-6 "Finch" block.
+
+Mamba: a causal depthwise conv over time, then a diagonal selective SSM.
+Its recurrence h_t = exp(dt_t a) h_{t-1} + dt_t b_t x_t is plain torch on
+every device, as it is plain ``jnp`` in the reference, which has no Pallas
+kernel for it: a decode step (T 1) is one update, and a longer sequence
+runs ``associative_scan``, a log-depth scan over time built from tensor
+ops that follows ``jax.lax.associative_scan``'s odd/even recursion, so the
+products come in the reference's order (no Python loop over T).
+
+RWKV-6: token shift, data-dependent decay time mix over the WKV recurrence
+(``kernels/rwkv6_wkv``), per-head group norm and the squared-ReLU channel
+mix.  Decode carries O(1) state per layer: Mamba's ``h`` and conv tail,
+RWKV's WKV state and its two token-shift carries.
 """
 
 from __future__ import annotations
@@ -12,10 +22,149 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
-from repro_torch.models.config import ModelConfig, RWKVConfig
+from repro_torch.models.config import ModelConfig, RWKVConfig, SSMConfig
 from repro_torch.models.layers import ParamModule, dense_init, impl_error, zeros_init
 
 GROUP_NORM_EPS = 64e-5
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM, diagonal A): hymba's branch parallel to attention
+# ---------------------------------------------------------------------------
+
+
+class Mamba(ParamModule):
+    NAMES = ("w_in", "conv_w", "conv_b", "w_bcdt", "w_dt", "dt_bias",
+             "a_log", "d_skip", "w_out")
+
+
+def _mamba_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(ED, n, dt_rank) of ``cfg.ssm``."""
+    sc: SSMConfig = cfg.ssm
+    return (sc.expand * cfg.d_model, sc.state_dim,
+            sc.dt_rank or max(1, cfg.d_model // 16))
+
+
+def mamba_init(generator: torch.Generator, cfg: ModelConfig,
+               dtype=torch.float32) -> Mamba:
+    """The reference's ``mamba_init`` in its draw order and shapes:
+    ``a_log = log(1..n)`` broadcast over ED (float32), ``d_skip`` ones."""
+    d = cfg.d_model
+    ed, n, dt_rank = _mamba_dims(cfg)
+    dev = generator.device
+    t = {"w_in": dense_init(generator, (d, 2 * ed), 0, dtype),
+         "conv_w": dense_init(generator, (cfg.ssm.conv_width, ed), 0, dtype),
+         "conv_b": zeros_init((ed,), dtype, dev),
+         "w_bcdt": dense_init(generator, (ed, 2 * n + dt_rank), 0, dtype),
+         "w_dt": dense_init(generator, (dt_rank, ed), 0, dtype),
+         "dt_bias": zeros_init((ed,), dtype, dev)}
+    t["a_log"] = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                        device=dev)).expand(ed, n).clone()
+    t["d_skip"] = zeros_init((ed,), dtype, dev, 1.0)
+    t["w_out"] = dense_init(generator, (ed, d), 0, dtype)
+    return Mamba(**t)
+
+
+def _mamba_core(p: Mamba, xc: torch.Tensor, dt_rank: int, n: int):
+    """xc (B, T, ED) post-conv activations -> the scan's decay da and input
+    dbx, each (B, T, ED, n), and C (B, T, n)."""
+    bcdt = xc @ p.w_bcdt  # (B, T, 2n + dt_rank)
+    b_mat = bcdt[..., :n]
+    c_mat = bcdt[..., n:2 * n]
+    dt = F.softplus(bcdt[..., 2 * n:] @ p.w_dt + p.dt_bias)  # (B, T, ED)
+    a = -torch.exp(p.a_log.float())                          # (ED, n)
+    da = torch.exp(dt[..., None] * a)                        # decay
+    dbx = dt[..., None] * b_mat[..., None, :] * xc[..., None]
+    return da, dbx, c_mat
+
+
+def _ssm_combine(left, right):
+    """(a, b) o (a', b') = (a a', a' b + b'): two steps of h -> a h + b."""
+    al, bl = left
+    ar, br = right
+    return al * ar, ar * bl + br
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """Rows ``even[0], odd[0], even[1], ...`` along axis 0 (``even`` has as
+    many rows as ``odd`` or one more)."""
+    m = odd.shape[0]
+    pairs = torch.stack([even[:m], odd], dim=1).reshape(2 * m, *odd.shape[1:])
+    return torch.cat([pairs, even[m:]], dim=0) if even.shape[0] > m else pairs
+
+
+def associative_scan(fn, elems):
+    """Inclusive scan of the tuple of tensors ``elems`` along axis 0 under
+    the associative ``fn``, by ``jax.lax.associative_scan``'s recursion:
+    combine adjacent pairs, scan the half, then fill in the even rows; the
+    depth is log2(T) and every level is a few whole-tensor ops."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    odd = associative_scan(fn, fn(tuple(e[0:-1:2] for e in elems),
+                                  tuple(e[1::2] for e in elems)))
+    if n % 2 == 0:
+        even = fn(tuple(e[:-1] for e in odd), tuple(e[2::2] for e in elems))
+    else:
+        even = fn(odd, tuple(e[2::2] for e in elems))
+    even = tuple(torch.cat([e[:1], r], dim=0) for e, r in zip(elems, even))
+    return tuple(_interleave(e, o) for e, o in zip(even, odd))
+
+
+def mamba_apply(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
+                state: dict | None = None):
+    """x (B, T, d) -> (y (B, T, d), new state ``{"h": (B, ED, n) float32,
+    "conv": (B, W - 1, ED)}``).  The conv reads the ``state``'s last W - 1
+    inputs (zeros without one); ``h0`` enters the scan folded into its
+    first element, as in the reference."""
+    ed, n, dt_rank = _mamba_dims(cfg)
+    bsz, t, _ = x.shape
+    xz = x @ p.w_in
+    xs, z = xz[..., :ed], xz[..., ed:]
+
+    # causal depthwise conv over time
+    w = cfg.ssm.conv_width
+    if state is not None:
+        hist = torch.cat([state["conv"].to(xs.dtype), xs], dim=1)
+    else:
+        hist = F.pad(xs, (0, 0, w - 1, 0))  # (B, W - 1 + T, ED)
+    xc = sum(hist[:, i:i + t] * p.conv_w[i] for i in range(w)) + p.conv_b
+    xc = F.silu(xc)
+    new_conv = hist[:, hist.shape[1] - (w - 1):]
+
+    da, dbx, c_mat = _mamba_core(p, xc, dt_rank, n)
+    h0 = (state["h"].float() if state is not None
+          else torch.zeros((bsz, ed, n), dtype=torch.float32, device=x.device))
+    if t == 1:
+        h = da[:, 0] * h0 + dbx[:, 0]
+        y = torch.einsum("ben,bn->be", h, c_mat[:, 0])[:, None]
+        h_fin = h
+    else:
+        da_t = da.transpose(0, 1).float()    # (T, B, ED, n)
+        dbx_t = dbx.transpose(0, 1).float()
+        # fold the initial state into the first element
+        dbx_t = torch.cat([dbx_t[:1] + da_t[0] * h0, dbx_t[1:]], dim=0)
+        _, h_all = associative_scan(_ssm_combine, (da_t, dbx_t))
+        y = torch.einsum("tben,btn->bte", h_all, c_mat)
+        h_fin = h_all[-1]
+    y = y + xc.float() * p.d_skip.float()
+    y = y * F.silu(z.float())
+    out = (y.to(x.dtype) @ p.w_out).to(x.dtype)
+    return out, {"h": h_fin, "conv": new_conv}
+
+
+def mamba_state_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device=None) -> dict:
+    ed, n, _ = _mamba_dims(cfg)
+    return {"h": torch.zeros((batch, ed, n), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, cfg.ssm.conv_width - 1, ed),
+                                dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 block
+# ---------------------------------------------------------------------------
 
 
 class RWKV6(ParamModule):

@@ -361,7 +361,7 @@ def test_init_params_has_reference_layout():
     shapes = {k: (v.shape, v.dtype) for k, v in got.state_dict().items()}
     assert shapes == {k: (v.shape, v.dtype)
                       for k, v in carried.state_dict().items()}
-    assert M.model_kind(cfg) == "moe"  # the main stack's kind
+    assert M._main_kind(cfg) == "moe"  # the main stack's kind
     assert len(got.dense_layers) == 1 and len(got.layers) == 1
     assert got.mtp_proj.shape == (2 * cfg.d_model, cfg.d_model)
     assert got.dense_layers[0].ffn.w_gate.shape == (cfg.d_model, cfg.d_ff)

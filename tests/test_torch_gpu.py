@@ -485,6 +485,28 @@ FLASH_CASES = [  # (b, hq, hkv, sq, skv, d, causal, window, q_offset, kv_len)
     (2, 4, 2, 1, 100, 48, True, None, 60, 61),      # D 48: padded columns
     (1, 4, 2, 40, 40, 80, True, None, 0, None),     # D 80 prefill: padded
 ]
+# the hybrid, encdec and vlm families' shapes: a group of 5 (hymba's 25/5
+# heads, R 8 with 3 idle rows) decoding with the 1,024 window past position
+# 1,024 and its windowed prefill; a group of 6 at D 128 (internvl2's 48/8,
+# R 4: the second row group half idle); non-causal calls with Sq != Skv
+# both ways, Sq 1 against F frames among them (seamless's encoder and
+# cross-attention)
+FAMILY_FLASH_CASES = [
+    (8, 25, 5, 1, 1152, 64, True, 1024, 1099, 1100),  # hymba decode
+    (8, 25, 5, 1, 1152, 64, True, 1024, 1024, 1025),  # ... one key out
+    (2, 25, 5, 1100, 1100, 64, True, 1024, 0, None),  # ... windowed prefill
+    (4, 25, 5, 512, 512, 64, True, 1024, 0, None),    # ... training prefill
+    (8, 48, 8, 1, 512, 128, True, None, 93, 94),      # internvl decode
+    (8, 48, 8, 1, 512, 128, True, None, 511, 512),    # ... full cache
+    (2, 48, 8, 768, 768, 128, True, None, 0, None),   # ... prefill + patches
+    (4, 16, 16, 128, 128, 64, False, None, 0, None),  # seamless encoder
+    (4, 16, 16, 512, 128, 64, False, None, 0, None),  # cross prefill
+    (8, 16, 16, 1, 128, 64, False, None, 0, None),    # cross decode
+    (2, 16, 16, 40, 200, 64, False, None, 0, None),   # Sq < Skv, ragged
+    (2, 16, 16, 100, 33, 64, False, None, 0, None),   # Sq > Skv, ragged
+    (3, 16, 16, 1, 77, 64, False, None, 0, None),     # Sq 1, ragged F
+]
+FLASH_CASES += FAMILY_FLASH_CASES
 # the decode sweep: kv_len across tile and cluster edges, GQA groups 1, 4, 8
 FLASH_CASES += [(4, 8 * g, 8, 1, 512, d, True, None, n - 1, n)
                 for n in (1, 31, 32, 33, 94, 129, 512) for g in (1, 4, 8)
@@ -525,6 +547,22 @@ def test_flash_attention_is_deterministic(cuda, case, dtype):
     first = fa_ops.flash_attention(q, k, v, causal, window, q_offset, kv_len)
     second = fa_ops.flash_attention(q, k, v, causal, window, q_offset, kv_len)
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("case", FAMILY_FLASH_CASES)
+def test_flash_attention_at_family_shapes(cuda, case):
+    """The hybrid, encdec and vlm shapes in float32: within 2e-5 of the
+    plain version, and a second call equal bit for bit."""
+    b, hq, hkv, sq, skv, d, causal, window, q_offset, kv_len = case
+    gen = torch.Generator(cuda).manual_seed(sq + skv + hq)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    got = fa_ops.flash_attention(q, k, v, causal, window, q_offset, kv_len)
+    again = fa_ops.flash_attention(q, k, v, causal, window, q_offset, kv_len)
+    assert torch.equal(got, again)
+    want = fa_ref.mha_plain(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, kv_len=kv_len)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("case", [
@@ -859,6 +897,62 @@ def test_families_on_card_equal_cpu(cuda, arch, absorb):
     if cfg.mtp:
         torch.testing.assert_close(aux["mtp_logits"].cpu(),
                                    want_aux["mtp_logits"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "seamless-m4t-large-v2",
+                                  "internvl2-26b"])
+def test_families2_on_card_equal_plain(cuda, arch):
+    """Reduced hymba, seamless and internvl2 on the card: ``forward`` with
+    frames or patches, 6 decode steps (after ``prefill_encoder``) and
+    ``loss_fn``'s loss and grads on the kernels against the plain version
+    on the card and against the CPU run, 1e-4; one flash_attention launch a
+    layer and step (two in a decoder_cross layer, and one an encoder layer
+    in ``prefill_encoder``)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import frontend_len
+    from repro_torch.models import model as M
+
+    cfg, p_cpu, p_gpu = lm_pair(arch, cuda)
+    plain = dataclasses.replace(cfg, attn_impl="ref")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, size=(3, 6))
+    n_front = frontend_len(cfg, 6)
+    front = (rng.standard_normal((3, n_front, cfg.d_model)).astype(np.float32)
+             if n_front else None)
+    per_layer = 2 if cfg.n_encoder_layers else 1
+    runs = []
+    for params, c in ((p_gpu, cfg), (p_gpu, plain), (p_cpu, cfg)):
+        dev = params.device
+        before = fa_ops.flash_attention.launches
+        full, _ = M.forward(params, c, toks, frontend=front)
+        cache = M.init_cache(c, 3, 16, device=dev, enc_memory_len=(
+            n_front if cfg.n_encoder_layers else 0))
+        if cfg.n_encoder_layers:
+            cache = M.prefill_encoder(params, c, front, cache)
+        steps = [M.decode_step(params, c, cache, toks[:, t:t + 1], t)[0].cpu()
+                 for t in range(6)]
+        launches = fa_ops.flash_attention.launches - before
+        params.requires_grad_(True)
+        named = dict(params.named_parameters())
+        batch = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+        if front is not None:
+            batch["frontend"] = front
+        loss, _ = M.loss_fn(params, c, batch)
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True, materialize_grads=True)
+        params.requires_grad_(False)
+        runs.append((full.cpu(), torch.stack(steps), loss.detach().cpu(),
+                     [g.cpu() for g in grads], launches))
+    kern = runs[0]
+    n_enc = cfg.n_encoder_layers
+    assert kern[4] == 7 * cfg.n_layers * per_layer + 2 * n_enc
+    assert runs[1][4] == runs[2][4] == 0
+    for other in runs[1:]:
+        for a, b in zip(kern[:3], other[:3]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        for a, b in zip(kern[3], other[3]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

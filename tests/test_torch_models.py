@@ -11,8 +11,8 @@ with the reference's params carried across by ``params_from_numpy``.
 * ``forward`` logits equal the reference's: 1e-4;
 * decode == prefill within the port, as the reference's arch smoke test
   checks it: 2e-3;
-* ``"xla_flash"`` raises ``ValueError``; the families not ported yet raise
-  ``NotImplementedError`` naming their ROADMAP A12 (b) item;
+* ``"xla_flash"`` raises ``ValueError`` (the hybrid, encdec and vlm
+  families are held in ``tests/test_torch_{hybrid,encdec,vlm}.py``);
 * ``init_params`` draws the reference's layouts.
 """
 
@@ -135,29 +135,6 @@ def test_xla_flash_raises(arch):
                       tokens(4, 1, cfg.vocab), 0)
     with pytest.raises(ValueError, match="xla_flash"):
         M.forward(params, cfg, tokens(4, 4, cfg.vocab))
-
-
-NOT_PORTED = {"hymba-1.5b": r"A12 \(b\) 4",
-              "seamless-m4t-large-v2": r"A12 \(b\) 5",
-              "internvl2-26b": r"A12 \(b\) 6"}
-
-
-@pytest.mark.parametrize("arch", [a for a in ARCHITECTURES
-                                  if a not in ARCHS + ["granite-3-8b",
-                                                       "starcoder2-15b",
-                                                       "qwen3-moe-30b-a3b",
-                                                       "minicpm3-4b",
-                                                       "deepseek-v3-671b"]])
-def test_families_not_ported_raise(arch):
-    """qwen3-moe and minicpm3 run since ROADMAP A12 (b) 1-2
-    (tests/test_torch_{moe,mla,families}.py) and deepseek-v3 since A12 (b)
-    3 (tests/test_torch_deepseek.py); the rest raise, naming their A12 (b)
-    item."""
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
-        M.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
-        M.init_cache(cfg, 1, 8, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["starcoder2-15b"])
