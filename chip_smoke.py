@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases 1,2,15     # the MoE and MLA families
     python3 chip_smoke.py --phases 1,2,16     # deepseek-v3
     python3 chip_smoke.py --phases 1,2,17     # hymba, seamless, internvl2
+    python3 chip_smoke.py --phases 1,2,18     # xla_flash, the plan vs the card
 
 Phases:
 
@@ -60,7 +61,9 @@ Phases:
               (S 1000, window 1024, non-causal, MQA, an offset chunk, bf16),
               float32 within 2e-5 and bf16 within 2e-2 (absolute plus
               relative), and every call equal bit for bit to a second call
-              on the same inputs; its decode is also timed over the full
+              on the same inputs; rows that see no key (kv_len 0 in decode
+              and prefill, rows before every key) come out exactly 0 in
+              both kernels (ROADMAP C12); its decode is also timed over the full
               512-row cache and its prefill in bf16 beside bf16 SDPA, and
               ptxas's registers, spills and shared memory are printed for
               the flash_attention and candidate_filter kernels beside the
@@ -428,6 +431,20 @@ Phases:
               head and its 768-row prefill), each against its plain
               version and timed as phase 15 (e), SDPA over the same
               visible keys as the library call.
+
+18. plan     — (a) granite-3-2b at 2 layers and full width, ``forward`` on
+              (2, 1,024) tokens under ``attn_impl="xla_flash"`` (the
+              reference's blocked online softmax, plain torch, no kernel)
+              against the kernel route, logits within 2e-3, both timed;
+              (b) the port's plan (``launch/dryrun.py`` on meta tensors,
+              a (1, 1) mesh, float32) of phase 14 (a)'s training step
+              (phase 14's measurement reused; without phase 14 its (a)
+              runs here): the planned argument bytes of params and AdamW
+              state must equal the trainer's live bytes exactly; the
+              planned peak beside ``torch.cuda.max_memory_allocated`` and
+              the roofline's bound (H100 constants,
+              ``launch/roofline.py``) beside the measured median step,
+              with their ratios.
 
 Any failure propagates: the script exits non-zero and prints no result.
 The last line of a passing run is
@@ -2756,6 +2773,37 @@ def check_flash(fa_ops, fa_ref, name, q, k, v, kw):
     return err
 
 
+ZERO_ROW_CASES = [  # name, (b, hq, hkv, sq, skv, d), kw
+    ("decode_kv0", (8, 32, 8, 1, 512, 64), {"q_offset": 0, "kv_len": 0}),
+    ("decode_sq5_kv0", (2, 8, 2, 5, 512, 64), {"q_offset": 200, "kv_len": 0}),
+    ("prefill_kv0", (1, 32, 8, 300, 300, 64), {"kv_len": 0}),
+    ("prefill_before_keys", (1, 4, 2, 64, 128, 128), {"q_offset": -40}),
+]
+
+
+def check_zero_rows(fa_ops, fa_ref, randn) -> float:
+    """ROADMAP C12: both kernels give 0, exactly, on every query row that
+    sees no key (kv_len 0; rows before every key), as the plain version
+    does, and agree with it on the other rows."""
+    err = 0.0
+    for name, (b, hq, hkv, sq, skv, d), kw in ZERO_ROW_CASES:
+        q, k, v = randn(b, hq, sq, d), randn(b, hkv, skv, d), randn(b, hkv,
+                                                                   skv, d)
+        err = max(err, check_flash(fa_ops, fa_ref, f"zero_rows_{name}", q, k,
+                                   v, kw))
+        got = fa_ops.flash_attention(q, k, v, **kw)
+        seen = fa_ref.visible_mask(sq, skv, q_offset=kw.get("q_offset", 0),
+                                   kv_len=kw.get("kv_len"),
+                                   device="cuda").any(-1)
+        blind = got[:, :, ~seen]
+        if seen.all() or not torch.equal(blind, torch.zeros_like(blind)):
+            raise AssertionError(f"flash_attention {name}: rows that see no "
+                                 f"key are not 0")
+        log(f"  flash_attention {name}: {int((~seen).sum())} of {sq} rows see "
+            f"no key, all 0")
+    return err
+
+
 def check_wkv(wkv_ops, wkv_ref, name, r, k, v, w, u, s0):
     """wkv6 against its plain version: equal bit for bit (the kernel follows
     the plain version's float32 evaluation order; stricter than the
@@ -2893,6 +2941,7 @@ def phase_lm_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref):
             fa_err = max(fa_err, err)
         else:
             bf16_err = max(bf16_err, err)
+    fa_err = max(fa_err, check_zero_rows(fa_ops, fa_ref, randn))
     log(f"  flash_attention max abs err: float32 {fa_err:.3g} (within 2e-5 "
         f"+ 2e-5 |want|), bfloat16 {bf16_err:.3g} (2e-2)")
     q, k, v, kw = inputs["prefill_2048"]
@@ -3600,26 +3649,38 @@ def report_steps(name, shape, hist, launches, kernel, first_timed, held):
     return med, per_step
 
 
-def train_full(main, tm, held):
+# (a)'s live bytes of params and AdamW state, peak above the memory held
+# before it, and median step: what phase 18 holds its plan against
+TRAIN_FULL_MEASURE: dict = {}
+
+
+def train_full(main, tm, held, phase=14):
     """(a): granite-3-2b at full width and depth, 8 steps, no checkpoint."""
     cfg = tm.get_config("granite-3-2b")
     shape = TRAIN_SHAPE["granite-3-2b"]
     log(f"[14 train] (a) {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
         f"remat {cfg.remat!r}, B x S {shape}, float32")
     torch.cuda.reset_peak_memory_stats()
-    params, _, hist = train_job(
+    params, opt_state, hist = train_job(
         main, tm, cfg, "granite-3-2b", shape,
-        dict(steps=TRAIN_FULL_STEPS, lr=3e-4, warmup=2, log_every=1))
+        dict(steps=TRAIN_FULL_STEPS, lr=3e-4, warmup=2, log_every=1),
+        phase=phase)
     log(f"  {sum(p.numel() for p in params.parameters()):,} params, "
         f"{state_gb(params):.2f} GB of params, grads, m and v")
     med, per_step = report_steps("(a)", shape, hist,
-                                 main.counts[(14, "granite-3-2b")],
+                                 main.counts[(phase, "granite-3-2b")],
                                  "flash_attention", 3, held)
     if per_step != 2 * cfg.n_layers:
         raise AssertionError(f"(a): {per_step} flash_attention launches a "
                              f"step, expected {2 * cfg.n_layers} (forward "
                              f"and remat recompute)")
-    del params
+    from repro_torch.launch.dryrun import live_bytes
+    TRAIN_FULL_MEASURE.update(
+        params_bytes=live_bytes(list(params.parameters())),
+        opt_bytes=live_bytes(opt_state),
+        peak_bytes=torch.cuda.max_memory_allocated() - held,
+        step_s=med, shape=shape)
+    del params, opt_state
     return med, cfg.n_layers
 
 
@@ -5104,10 +5165,120 @@ def phase_families2(main, fa_ops, fa_ref, stores):
     return err, tim
 
 
+# ---------------------------------------------------------------------------
+# phase 18: xla_flash on the card, and the plan against the card
+# ---------------------------------------------------------------------------
+
+XLA_FLASH_LAYERS = 2           # granite-3-2b at full width, depth cut
+XLA_FLASH_TOKENS = (2, 1024)   # two 512-key blocks of the xla_flash loop
+
+
+def xla_flash_check(main, lm):
+    """(a) granite-3-2b at 2 layers and full width: ``forward`` logits under
+    ``attn_impl="xla_flash"`` (the reference's blocked online softmax in
+    torch) against the kernel route within 2e-3, both timed."""
+    cfg = dataclasses.replace(lm.get_config("granite-3-2b"),
+                              n_layers=XLA_FLASH_LAYERS)
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = lm.M.init_params(cfg, gen, "cuda")
+    toks = torch.randint(0, cfg.vocab, XLA_FLASH_TOKENS, generator=gen,
+                         device="cuda")
+    runs = {}
+    for impl in ("auto", "xla_flash"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+
+        def fwd(c=c):
+            with torch.no_grad():
+                return lm.M.forward(params, c, toks)[0][..., :cfg.vocab]
+
+        path = "granite-3-2b_" + ("kernel" if impl == "auto" else impl)
+        runs[impl] = (main.run(path, fwd, phase=18), time_ms(fwd, 5))
+    (ker, ker_ms), (fla, fla_ms) = runs["auto"], runs["xla_flash"]
+    err = float((fla - ker).abs().max())
+    log(f"[18 plan] (a) {cfg.name} at {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, tokens {XLA_FLASH_TOKENS}: xla_flash logits against "
+        f"the kernel route max abs err {err:.3g}; forward {fla_ms:.3f} ms "
+        f"(xla_flash) vs {ker_ms:.3f} ms (kernel)")
+    if not torch.allclose(fla, ker, rtol=2e-3, atol=2e-3):
+        raise AssertionError(f"xla_flash logits differ from the kernel "
+                             f"route's by {err} (past 2e-3)")
+    if main.counts[(18, "granite-3-2b_xla_flash")]["flash_attention"]:
+        raise AssertionError("the xla_flash route launched flash_attention")
+    del params
+    return {"xla_flash_ms": fla_ms, "kernel_ms": ker_ms, "max_abs_err": err}
+
+
+def plan_check(main, tm):
+    """(b) the port's plan of phase 14 (a)'s training step (granite-3-2b,
+    full depth, float32, B x S ``TRAIN_SHAPE``) on a (1, 1) mesh: the
+    planned argument bytes of params and AdamW state equal the trainer's
+    live ones exactly; the planned peak beside the measured one and the
+    roofline's bound beside the measured step."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models.sharding import ShardingPolicy
+
+    if not TRAIN_FULL_MEASURE:  # phase 14 did not run: run its (a) here
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_full(main, tm, torch.cuda.memory_allocated(), phase=18)
+    m = TRAIN_FULL_MEASURE
+    cfg = tm.get_config("granite-3-2b")
+    b, s = m["shape"]
+    shape = ShapeSpec("train_phase14", s, b, "train")
+    pol = ShardingPolicy(mesh={"data": 1, "model": 1})
+    t0 = time.perf_counter()
+    mem = dryrun.memory_analysis(cfg, shape, pol, dtype=torch.float32)
+    sc = dryrun.scaled_costs(cfg, shape, pol, dtype=torch.float32)
+    plan_s = time.perf_counter() - t0
+    parts = mem["argument_parts"]
+    planned = parts["params"] + parts["opt_state"]
+    live = m["params_bytes"] + m["opt_bytes"]
+    log(f"[18 plan] (b) {cfg.name} training at B x S {(b, s)} on a (1, 1) "
+        f"mesh, planned on meta in {plan_s:.1f} s: argument bytes of params "
+        f"and AdamW state {planned:,} planned, {live:,} live "
+        f"(params {parts['params']:,} / {m['params_bytes']:,})")
+    if planned != live or parts["params"] != m["params_bytes"]:
+        raise AssertionError(f"planned argument bytes {planned} != the "
+                             f"trainer's live {live}")
+    peak = mem["peak_memory_in_bytes"]
+    log(f"  peak: planned {peak / 2**30:.3f} GiB, measured "
+        f"torch.cuda.max_memory_allocated {m['peak_bytes'] / 2**30:.3f} GiB "
+        f"above the memory held before it; planned / measured "
+        f"{peak / m['peak_bytes']:.4f}")
+    a = roofline.analyze_record({
+        "scaled": sc, "n_devices": 1, "mode": "train", "tokens": b * s,
+        "model_active_params": cfg.active_params_per_token,
+        "param_dtype": "float32"})
+    log(f"  roofline at H100 constants (float32 {roofline.PEAK_FLOPS_BY_DTYPE['float32']:.3g} "
+        f"flop/s, {roofline.HBM_BW:.3g} B/s): compute {a['compute_s'] * 1e3:.1f} "
+        f"ms, memory {a['memory_s'] * 1e3:.1f} ms (per-op bytes, an upper "
+        f"bound), dominant {a['dominant']}; bound {a['bound_s'] * 1e3:.1f} ms "
+        f"against the measured median step {m['step_s'] * 1e3:.1f} ms: "
+        f"fraction {a['bound_s'] / m['step_s']:.4f}; useful ratio "
+        f"{a['useful_ratio']:.3f}, planned flops {sc['flops_global']:.4g}")
+    return {"planned_peak": peak, "measured_peak": m["peak_bytes"],
+            "bound_s": a["bound_s"], "step_s": m["step_s"]}
+
+
+def phase_plan(main, stores):
+    """Phase 18: (a) ``xla_flash`` on the card, (b) the plan of phase 14
+    (a)'s training step against the trainer's live bytes, peak and step."""
+    free_earlier_phases(stores)
+    t0 = time.perf_counter()
+    xla_flash_check(main, lm_modules())
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    plan_check(main, train_modules())
+    log(f"  phase 18 parts (s): a {t1 - t0:.1f}, b "
+        f"{time.perf_counter() - t1:.1f}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases",
-                        default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+                        default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
                         help="comma-separated phase numbers to run")
     parser.add_argument("--scale", type=float, default=1.0,
                         help="common factor on the scale graph's (and the "
@@ -5215,6 +5386,12 @@ def main(argv=None) -> int:
         timings.update(tim)
         log(f"  phase 17: {time.perf_counter() - t0:.1f} s, launches "
             f"{ {path: c for (n, path), c in main.counts.items() if n == 17} }")
+    if 18 in phases:
+        main.phase = 18
+        t0 = time.perf_counter()
+        phase_plan(main, stores)
+        log(f"  phase 18: {time.perf_counter() - t0:.1f} s, launches "
+            f"{ {path: c for (n, path), c in main.counts.items() if n == 18} }")
     launches = {k: sum(c[k] for c in main.counts.values()) for k in main.read()}
     if 8 in phases:
         log(f"[8 counts] main-path launches per (phase, path): {main.counts}; "
@@ -5272,7 +5449,8 @@ def main(argv=None) -> int:
                     (17, "seamless-m4t-large-v2_train"): ("flash_attention",),
                     (17, "internvl2-26b"): ("flash_attention",),
                     (17, "internvl2-26b_forward"): ("flash_attention",),
-                    (17, "internvl2-26b_train"): ("flash_attention",)}
+                    (17, "internvl2-26b_train"): ("flash_attention",),
+                    (18, "granite-3-2b_kernel"): ("flash_attention",)}
         for (num, entry), names in required.items():
             for name in names:
                 if num in phases and main.counts[(num, entry)][name] == 0:

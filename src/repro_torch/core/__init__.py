@@ -5,6 +5,7 @@ engine, ported to PyTorch."""
 from repro_torch.core.batch_engine import BatchQueryEngine, batched_ilgf_round
 from repro_torch.core.cni import (
     SAT64,
+    cni_exact_py,
     cni_from_counts,
     cni_log_from_counts,
     default_max_p,
@@ -58,7 +59,7 @@ __all__ = [
     "PartitionPlan", "Plan", "PlanCache", "QueryPlanner", "QueryStats",
     "ShardMesh", "ShardedIncrementalIndex", "StreamResult", "StreamStats",
     "SubgraphQueryEngine", "batched_ilgf_round", "bfs_join_search",
-    "canonical_form", "cni_from_counts", "cni_log_from_counts",
+    "canonical_form", "cni_exact_py", "cni_from_counts", "cni_log_from_counts",
     "default_max_p", "device_join_search", "device_mesh",
     "distributed_ilgf", "distributed_join_search", "embeddings_equal",
     "empty_enum_report", "greedy_matching_order", "host_dfs_search", "ilgf",

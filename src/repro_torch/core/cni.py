@@ -200,3 +200,18 @@ def cni_from_counts_np(counts: np.ndarray, d_max: int, max_p: int):
         -np.inf,
     ).astype(np.float32)
     return cni_u64.astype(np.int64), cni_log, deg_all
+
+
+def cni_exact_py(labels: list[int]) -> int:
+    """Arbitrary-precision host oracle of the paper's formula over the
+    positive ``labels`` in descending order (no saturation), as the
+    reference's; the int64 digest equals it while it is below ``SAT64``."""
+    import math
+
+    xs = sorted((int(x) for x in labels if int(x) > 0), reverse=True)
+    total = 0
+    s = 0
+    for j, x in enumerate(xs, start=1):
+        s += x
+        total += math.comb(j + s - 1, j)
+    return total

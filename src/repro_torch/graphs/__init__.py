@@ -1,13 +1,17 @@
 from repro_torch.graphs.convert import graph_from_numpy
 from repro_torch.graphs.csr import (
     Graph,
+    PaddedGraph,
+    adjacency_bitmap,
     as_numpy,
     build_graph,
+    edge_label_lookup,
     graph_to,
     induced_subgraph,
     max_degree,
     symmetrize,
     to_host,
+    to_padded,
 )
 from repro_torch.graphs.datasets import PAPER_DATASETS, paper_dataset
 from repro_torch.graphs.io import (
@@ -43,11 +47,12 @@ from repro_torch.graphs.store import (
 __all__ = [
     "ApplyResult", "ChunkCache", "ChunkDirWriter", "ChunkIOError",
     "EdgeBatch", "Graph", "GraphSnapshot", "GraphStore", "OocSnapshot",
-    "OutOfCoreGraphStore", "PAPER_DATASETS", "ShardStats", "ShardedGraphStore",
-    "StoreStats", "as_numpy", "as_snapshot", "build_graph",
-    "graph_from_numpy", "graph_to", "induced_subgraph", "iter_update_batches",
+    "OutOfCoreGraphStore", "PAPER_DATASETS", "PaddedGraph", "ShardStats",
+    "ShardedGraphStore", "StoreStats", "adjacency_bitmap", "as_numpy",
+    "as_snapshot", "build_graph", "edge_label_lookup", "graph_from_numpy",
+    "graph_to", "induced_subgraph", "iter_update_batches",
     "load_manifest", "make_edge_batch", "max_degree", "paper_dataset",
     "power_law_graph", "random_labeled_graph", "random_update_batches",
     "random_walk_query", "read_chunk", "read_edge_file", "stream_edge_chunks",
-    "symmetrize", "to_host", "write_chunk_dir", "write_edge_file",
+    "symmetrize", "to_host", "to_padded", "write_chunk_dir", "write_edge_file",
 ]

@@ -6,6 +6,12 @@ device the fields are tensors: ``vlabels``/``elabels`` int32 and
 ``src``/``dst`` int64, the index dtype PyTorch's gathers and scatters take.
 ``to_host`` and ``induced_subgraph`` return numpy-backed graphs for the
 host-side search stages, as the reference does.
+
+``PaddedGraph`` is the dense form of a small graph: (V, D) int32 neighbour
+and edge-label tables padded with -1; ``to_padded`` builds it on the host
+and ``adjacency_bitmap`` packs the adjacency into (V, ceil(V / 32)) uint32
+words.  No path of the port calls them; they are the reference's public
+helpers, with its fields and dtypes.
 """
 
 from __future__ import annotations
@@ -37,6 +43,23 @@ class Graph(NamedTuple):
     @property
     def n_edges(self) -> int:
         return self.n_directed_edges // 2
+
+
+class PaddedGraph(NamedTuple):
+    """Dense neighbour-table form; pad value -1."""
+
+    vlabels: torch.Tensor      # (V,) int32
+    nbr: torch.Tensor          # (V, D) int32, -1 padded
+    nbr_elabels: torch.Tensor  # (V, D) int32, -1 padded
+    deg: torch.Tensor          # (V,) int32
+
+    @property
+    def n_vertices(self) -> int:
+        return int(self.vlabels.shape[0])
+
+    @property
+    def max_degree(self) -> int:
+        return int(self.nbr.shape[1])
 
 
 def as_numpy(x) -> np.ndarray:
@@ -131,3 +154,55 @@ def induced_subgraph(g: Graph, keep_mask) -> tuple[Graph, np.ndarray]:
         elabels=elab[emask].astype(np.int32),
     )
     return sub, old_ids
+
+
+def _graph_device(g: Graph, device):
+    """``device`` if given, else the device of ``g``'s tensors (CUDA for a
+    numpy-backed graph)."""
+    if device is None and isinstance(g.src, torch.Tensor):
+        return g.src.device
+    return resolve_device(device)
+
+
+def to_padded(g: Graph, d_max: int | None = None, *,
+              device=None) -> PaddedGraph:
+    """(V, D) neighbour tables, built on the host: D is the largest degree
+    (1 for a graph without edges), raised to ``d_max`` when that is larger;
+    each vertex's neighbours in edge-list order.  The tables go to
+    ``device`` (by default the graph's)."""
+    dev = _graph_device(g, device)
+    n = g.n_vertices
+    src, dst, elab = (as_numpy(x) for x in (g.src, g.dst, g.elabels))
+    deg = np.bincount(src, minlength=n)
+    d = int(deg.max()) if deg.size and deg.max() > 0 else 1
+    if d_max is not None:
+        d = max(d, d_max)
+    nbr = np.full((n, d), -1, dtype=np.int32)
+    nbe = np.full((n, d), -1, dtype=np.int32)
+    # slot of each directed edge among its source's edges, in table order
+    order = np.argsort(src, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(deg)[:-1]])
+    slot = np.empty(src.size, dtype=np.int64)
+    slot[order] = np.arange(src.size) - starts[src[order]]
+    nbr[src, slot] = dst
+    nbe[src, slot] = elab
+    return PaddedGraph(*(torch.as_tensor(a, device=dev) for a in (
+        as_numpy(g.vlabels).astype(np.int32), nbr, nbe, deg.astype(np.int32))))
+
+
+def adjacency_bitmap(g: Graph, *, device=None) -> torch.Tensor:
+    """Bit-packed adjacency, (V, ceil(V / 32)) uint32 (at least one word):
+    bit ``w % 32`` of word ``w // 32`` of row ``v`` is set iff edge (v, w).
+    Built on the host, on ``device`` (by default the graph's)."""
+    n = g.n_vertices
+    bits = np.zeros((n, max(1, (n + 31) // 32)), dtype=np.uint32)
+    src, dst = as_numpy(g.src).astype(np.int64), as_numpy(g.dst).astype(np.int64)
+    np.bitwise_or.at(bits, (src, dst // 32),
+                     np.uint32(1) << (dst % 32).astype(np.uint32))
+    return torch.as_tensor(bits, device=_graph_device(g, device))
+
+
+def edge_label_lookup(g: Graph) -> dict[tuple[int, int], int]:
+    """Host dict (u, v) -> edge label (both directions present)."""
+    src, dst, elab = (as_numpy(x) for x in (g.src, g.dst, g.elabels))
+    return {(int(s), int(t)): int(e) for s, t, e in zip(src, dst, elab)}

@@ -5,7 +5,10 @@
 the Pallas kernel: scores in float32 at scale 1/sqrt(D) (q's width), masked
 to -1e30 where a key is past ``kv_len``, in the future of a causal query, or
 outside the sliding ``window``, then softmax and the weighted sum of V,
-cast to ``q.dtype``.  V may be narrower than q and k (MLA's head): the
+cast to ``q.dtype``.  A row that sees no key (``kv_len`` 0, a query
+before every key, a row windowed out) comes out 0, as the kernel's does;
+the reference's ``mha_ref`` gives NaN there, and no model path has such a
+row (ROADMAP C12).  V may be narrower than q and k (MLA's head): the
 output takes V's width, the first columns of the reference's output on V
 padded to q's width.
 GQA maps query head ``h`` to KV head ``h // (Hq / Hkv)``.  It runs on any
@@ -43,6 +46,8 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Dv) in q.dtype."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
+    if skv == 0:
+        return q.new_zeros((b, hq, sq, v.shape[3]))
     group = hq // hkv
     kk = k.float().repeat_interleave(group, dim=1)
     vv = v.float().repeat_interleave(group, dim=1)
@@ -51,6 +56,9 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         q_offset=q_offset, kv_len=kv_len, device=q.device)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.exp(logits - logits.amax(-1, keepdim=True))
+    # a row that sees no key gets weight 0 everywhere: its output is 0
+    probs = torch.where(mask.any(-1, keepdim=True), probs,
+                        torch.zeros_like(probs))
     probs = probs / probs.sum(-1, keepdim=True).clamp_min(1e-30)
     return torch.einsum("bhqk,bhkd->bhqd", probs, vv).to(q.dtype)
 

@@ -85,8 +85,8 @@ class ModelConfig:
     remat: Literal["none", "full", "dots"] = "full"
     # attention (and RWKV WKV) math: 'auto' and 'kernel' launch the CUDA
     # kernel on a CUDA tensor and run its plain version on a CPU tensor;
-    # 'ref' runs the plain version anywhere; 'xla_flash' (the reference's
-    # XLA-only formulation) raises ValueError in the port
+    # 'ref' runs the plain version anywhere; 'xla_flash' runs the
+    # reference's blocked online softmax in plain torch on any device
     attn_impl: Literal["auto", "kernel", "xla_flash", "ref"] = "auto"
     # the reference's layer-scan unrolling (a dry-run cost option); kept as
     # data so configs compare field for field, read nowhere in the port

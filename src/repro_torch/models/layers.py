@@ -14,8 +14,9 @@ Attention maths (``attention_math``), by the config's ``attn_impl``:
   * ``auto`` / ``kernel`` — ``kernels/flash_attention``: the CUDA kernel on
     a CUDA tensor, its plain version on a CPU tensor;
   * ``ref``               — the plain version on any device (tests);
-  * ``xla_flash``         — the reference's XLA-only ``lax.scan``
-    formulation; the port raises ``ValueError``.
+  * ``xla_flash``         — ``xla_flash_attention``, the reference's
+    blocked online softmax (a ``lax.scan`` over KV blocks there, a Python
+    loop here) in plain torch on whatever device the tensors are on.
 
 MLA's naive path and its prefill go through ``attention_math`` (q and k
 qk_nope + qk_rope wide, V at v_head_dim); its absorbed decode and the
@@ -36,13 +37,15 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.models.config import ModelConfig
 
-IMPLS = ("auto", "kernel", "ref")
+IMPLS = ("auto", "kernel", "ref", "xla_flash")
 
 
 class ParamModule(nn.Module):
-    """A layer's weights: one ``nn.Parameter`` per name in ``NAMES``."""
+    """A layer's weights: one ``nn.Parameter`` per name in ``NAMES``, each
+    with the logical axes of ``SPECS`` (``models/sharding.py``)."""
 
     NAMES: tuple[str, ...] = ()
+    SPECS: dict[str, tuple] = {}
 
     def __init__(self, **tensors: torch.Tensor):
         super().__init__()
@@ -115,6 +118,63 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0):
 # ---------------------------------------------------------------------------
 
 
+def xla_flash_attention(q, k, v, *, causal: bool = True, window=None,
+                        q_offset: int = 0, kv_len=None,
+                        block_k: int = 512) -> torch.Tensor:
+    """The reference's ``xla_flash_attention``: a streaming softmax over KV
+    blocks of ``block_k`` keys, (B, Hq, Sq, D) x (B, Hkv, Skv, D) x (B, Hkv,
+    Skv, Dv) -> (B, Hq, Sq, Dv) in q's dtype, Dv <= D.
+
+    GQA reshapes q to (B, Hkv, G, Sq, D), so K and V are never repeated;
+    scores, the running max and sum and the accumulator are float32; masked
+    scores are -1e30; Skv is padded with zero keys to a multiple of the
+    block (and ``kv_len`` then defaults to Skv, so the pad stays masked).
+    A masked key gets weight 0, so a row that sees no key comes out 0, as
+    the kernel's and ``mha_plain``'s do; the reference's ``xla_flash``
+    gives such a row the mean of V instead.  No model path has such a row
+    (ROADMAP C12)."""
+    b, hq, sq, d = q.shape
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if skv == 0:
+        return q.new_zeros((b, hq, sq, dv))
+    g = hq // hkv
+    qr = q.reshape(b, hkv, g, sq, d).float() * (1.0 / math.sqrt(d))
+    bk = min(block_k, skv)
+    pad = (-skv) % bk
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+        if kv_len is None:
+            kv_len = skv
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    m_run = torch.full((b, hkv, g, sq), -1e30, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, dv), dtype=torch.float32,
+                      device=q.device)
+    for lo in range(0, skv + pad, bk):
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qr, k[:, :, lo:lo + bk].float())
+        k_pos = lo + torch.arange(bk, device=q.device)
+        mask = torch.ones((sq, bk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        if kv_len is not None:
+            mask &= k_pos[None, :] < kv_len
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m_run, s.amax(-1))
+        alpha = torch.exp(m_run - m_new)
+        p = torch.where(mask, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        l_run = l_run * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqc,bkcd->bkgqd", p, v[:, :, lo:lo + bk].float())
+        m_run = m_new
+    out = acc / l_run.clamp_min(1e-30)[..., None]
+    return out.reshape(b, hq, sq, dv).to(q.dtype)
+
+
 def attention_math(q, k, v, impl: str, *, causal: bool = True, window=None,
                    q_offset: int = 0, kv_len=None) -> torch.Tensor:
     """(B, Hq, Sq, D) x (B, Hkv, Skv, D) x (B, Hkv, Skv, Dv) -> (B, Hq, Sq,
@@ -126,19 +186,20 @@ def attention_math(q, k, v, impl: str, *, causal: bool = True, window=None,
     if impl == "ref":
         return flash_ref.mha_plain(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, kv_len=kv_len)
+    if impl == "xla_flash":
+        return xla_flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, kv_len=kv_len)
     raise impl_error(impl)
 
 
 def impl_error(impl: str) -> ValueError:
-    if impl == "xla_flash":
-        return ValueError("attn_impl 'xla_flash' is the reference's XLA-only "
-                          "formulation; the port takes 'auto', 'kernel' or 'ref'")
     return ValueError(f"unknown attn_impl {impl!r}; expected one of {IMPLS}")
 
 
 def resolve_attn_impl(cfg: ModelConfig) -> str:
     """``auto`` means the kernel (which runs its plain version on a CPU
-    tensor); ``xla_flash`` raises."""
+    tensor), on every device; the reference's ``auto`` takes ``xla_flash``
+    off a TPU (ROADMAP C11)."""
     if cfg.attn_impl not in IMPLS:
         raise impl_error(cfg.attn_impl)
     return "kernel" if cfg.attn_impl == "auto" else cfg.attn_impl
@@ -151,6 +212,11 @@ def resolve_attn_impl(cfg: ModelConfig) -> str:
 
 class GQA(ParamModule):
     NAMES = ("wq", "wk", "wv", "wo")
+    SPECS = {"wq": ("fsdp", "heads", None), "wk": ("fsdp", "kv_heads", None),
+             "wv": ("fsdp", "kv_heads", None), "wo": ("heads", None, "fsdp")}
+    # the decode cache's k and v, (B, Hkv, S_max, hd)
+    CACHE_SPECS = {"k": ("batch", "kv_heads", "kv_seq", None),
+                   "v": ("batch", "kv_heads", "kv_seq", None)}
 
 
 def gqa_init(generator: torch.Generator, cfg: ModelConfig,
@@ -207,6 +273,14 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int,
 class MLA(ParamModule):
     NAMES = ("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_kr", "w_uk",
              "w_uv", "wo")
+    SPECS = {"w_dq": ("fsdp", None), "q_norm": (None,),
+             "w_uq": (None, "heads", None), "w_dkv": ("fsdp", None),
+             "kv_norm": (None,), "w_kr": ("fsdp", None),
+             "w_uk": (None, "heads", None), "w_uv": (None, "heads", None),
+             "wo": ("heads", None, "fsdp")}
+    # the compressed cache: ckv (B, S_max, r) and k_rope (B, S_max, rope)
+    CACHE_SPECS = {"ckv": ("batch", "kv_seq", None),
+                   "k_rope": ("batch", "kv_seq", None)}
 
 
 def mla_init(generator: torch.Generator, cfg: ModelConfig,
@@ -347,6 +421,8 @@ def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int,
 
 class SwiGLU(ParamModule):
     NAMES = ("w_gate", "w_up", "w_down")
+    SPECS = {"w_gate": ("fsdp", "ff"), "w_up": ("fsdp", "ff"),
+             "w_down": ("ff", "fsdp")}
 
 
 def swiglu_init(generator: torch.Generator, d: int, d_ff: int,
@@ -369,6 +445,10 @@ class MoE(ParamModule):
     ``SwiGLU`` of width de * n_shared."""
 
     NAMES = ("w_router", "w_gate", "w_up", "w_down")
+    SPECS = {"w_router": (None, None), "router_bias": (None,),
+             "w_gate": ("experts", "fsdp", None),
+             "w_up": ("experts", "fsdp", None),
+             "w_down": ("experts", None, "fsdp")}
 
     def __init__(self, *, router_bias: Optional[torch.Tensor] = None,
                  shared: Optional[SwiGLU] = None, **tensors: torch.Tensor):

@@ -144,15 +144,27 @@ def _layer_init(generator, cfg: ModelConfig, kind: str, dtype) -> Layer:
     return Layer(ones, ones.clone(), **extra)
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on ``meta``: shapes, no numbers."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None, dtype=torch.float32) -> LM:
     """Random params drawn from ``generator`` (seed 0 on ``device`` when
     None) in the reference's shapes and scales.  ``device=None`` means
-    CUDA.  The numbers differ from the reference's ``jax.random`` draws;
-    tests carry reference params across with ``convert.params_from_numpy``."""
+    CUDA; on ``"meta"`` the params have shapes and dtypes only, and any
+    ``generator`` is ignored (the planning tools, ``launch/dryrun.py``).
+    The numbers differ from the reference's ``jax.random`` draws; tests
+    carry reference params across with ``convert.params_from_numpy``."""
     kind = _main_kind(cfg)
     dev = resolve_device(device)
-    if generator is None:
+    if dev.type == "meta":
+        generator = _MetaGenerator()
+    elif generator is None:
         generator = torch.Generator(dev).manual_seed(0)
     elif generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
@@ -222,6 +234,100 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return out
 
 
+def _stacked_specs(specs):
+    """A layer's spec tree with the leading layer axis (never sharded)."""
+    if isinstance(specs, dict):
+        return {k: _stacked_specs(v) for k, v in specs.items()}
+    return (None, *specs)
+
+
+def _layer_specs(cfg: ModelConfig, kind: str) -> dict:
+    """One ``kind`` layer's logical axes, named as ``_layer_init`` names its
+    tensors (the reference's ``_layer_init`` spec tree)."""
+    specs = {"norm1": (None,), "norm2": (None,)}
+    if kind == "rwkv":
+        return {**specs, "rwkv": dict(S.RWKV6.SPECS)}
+    specs["attn"] = dict((L.MLA if cfg.mla is not None else L.GQA).SPECS)
+    if kind == "hybrid":
+        specs["mamba"] = dict(S.Mamba.SPECS)
+    if kind == "decoder_cross":
+        specs["xattn"] = dict(L.GQA.SPECS)
+        specs["norm_x"] = (None,)
+    if kind == "moe":
+        mo = cfg.moe
+        ffn = {k: v for k, v in L.MoE.SPECS.items()
+               if k != "router_bias" or mo.router_aux_free_bias}
+        if mo.n_shared:
+            ffn["shared"] = dict(L.SwiGLU.SPECS)
+        specs["ffn"] = ffn
+    else:
+        specs["ffn"] = dict(L.SwiGLU.SPECS)
+    return specs
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical axes of every param, in the reference's stacked tree (the
+    layout of ``convert.params_to_numpy``; a stacked leaf's layer axis is
+    None): leaf for leaf the spec tree of the reference's ``init_params``."""
+    specs = {"embed": ("vocab", "embed"), "final_norm": (None,)}
+    if cfg.frontend != "none":
+        specs["frontend_adapter"] = ("fsdp", None)
+    if cfg.n_encoder_layers:
+        specs["encoder"] = _stacked_specs(_layer_specs(cfg, "encoder"))
+        specs["enc_norm"] = (None,)
+    if cfg.first_k_dense:
+        specs["dense_layers"] = _stacked_specs(_layer_specs(cfg, "dense"))
+    specs["layers"] = _stacked_specs(_layer_specs(cfg, _main_kind(cfg)))
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ("embed", "vocab")
+    if cfg.mtp:
+        specs["mtp_layer"] = _layer_specs(cfg, "dense")
+        specs["mtp_proj"] = ("fsdp", None)
+    return specs
+
+
+def named_param_specs(cfg: ModelConfig) -> dict[str, tuple]:
+    """``param_specs`` keyed like ``LM.named_parameters()``: one entry per
+    layer of a stack (``"layers.3.attn.wq"``), without the layer axis."""
+    depth = {"encoder": cfg.n_encoder_layers,
+             "dense_layers": cfg.first_k_dense,
+             "layers": cfg.n_layers - cfg.first_k_dense}
+    out = {}
+
+    def walk(tree, path, n):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,), n)
+        elif n is None:
+            out[".".join(path)] = tree
+        else:
+            for i in range(n):
+                out[".".join((path[0], str(i)) + path[1:])] = tree[1:]
+
+    for name, tree in param_specs(cfg).items():
+        walk(tree, (name,), depth.get(name))
+    return out
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    """The logical axes of ``init_cache``'s tree, leaf for leaf the spec tree
+    of the reference's ``init_cache``."""
+    kind = _main_kind(cfg)
+    if kind == "rwkv":
+        one = dict(S.RWKV6.STATE_SPECS)
+    else:
+        one = {"attn": dict((L.MLA if cfg.mla is not None
+                             else L.GQA).CACHE_SPECS)}
+        if kind == "hybrid":
+            one["mamba"] = dict(S.Mamba.STATE_SPECS)
+    out = {"layers": _stacked_specs(one)}
+    if cfg.first_k_dense:
+        out["dense_layers"] = _stacked_specs(one)
+    if cfg.n_encoder_layers:
+        out["memory"] = ("batch", None, None)
+    return out
+
+
 def _layer_cache(tree, i: int):
     """Layer ``i``'s views into the stacked cache (writes land in it)."""
     if isinstance(tree, dict):
@@ -287,7 +393,14 @@ def _layer_apply(layer: Layer, x, cfg: ModelConfig, kind: str, *, impl: str,
 def _cross_attention(p: L.GQA, xq, memory, impl: str) -> torch.Tensor:
     """GQA params reused for cross-attention: q from ``xq`` (B, Sq, d), K
     and V projected from ``memory`` (B, F, d) on every call (no rope), then
-    non-causal attention over all F keys."""
+    non-causal attention over all F keys.  An empty memory (F 0: a cache
+    made without ``enc_memory_len`` and never filled by
+    ``prefill_encoder``) raises ``ValueError``, as the reference fails
+    there, rather than attend to nothing."""
+    if memory.shape[1] == 0:
+        raise ValueError("cross-attention over an empty encoder memory: "
+                         "make the cache with init_cache(enc_memory_len=F) "
+                         "and fill it with prefill_encoder")
     q = torch.einsum("bsd,dhk->bhsk", xq, p.wq)
     k = torch.einsum("bsd,dhk->bhsk", memory, p.wk)
     v = torch.einsum("bsd,dhk->bhsk", memory, p.wv)

@@ -36,6 +36,11 @@ GROUP_NORM_EPS = 64e-5
 class Mamba(ParamModule):
     NAMES = ("w_in", "conv_w", "conv_b", "w_bcdt", "w_dt", "dt_bias",
              "a_log", "d_skip", "w_out")
+    SPECS = {"w_in": ("fsdp", "ff"), "conv_w": (None, "ff"), "conv_b": ("ff",),
+             "w_bcdt": ("ff", None), "w_dt": (None, "ff"), "dt_bias": ("ff",),
+             "a_log": ("ff", None), "d_skip": ("ff",), "w_out": ("ff", "fsdp")}
+    # the decode state's: h (B, ED, n) and conv (B, W - 1, ED)
+    STATE_SPECS = {"h": ("batch", "ff", None), "conv": ("batch", None, "ff")}
 
 
 def _mamba_dims(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -137,7 +142,9 @@ def mamba_apply(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
           else torch.zeros((bsz, ed, n), dtype=torch.float32, device=x.device))
     if t == 1:
         h = da[:, 0] * h0 + dbx[:, 0]
-        y = torch.einsum("ben,bn->be", h, c_mat[:, 0])[:, None]
+        # float32 state times C: float32, as the reference's einsum promotes
+        # (ROADMAP C13)
+        y = torch.einsum("ben,bn->be", h, c_mat[:, 0].float())[:, None]
         h_fin = h
     else:
         da_t = da.transpose(0, 1).float()    # (T, B, ED, n)
@@ -145,7 +152,7 @@ def mamba_apply(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
         # fold the initial state into the first element
         dbx_t = torch.cat([dbx_t[:1] + da_t[0] * h0, dbx_t[1:]], dim=0)
         _, h_all = associative_scan(_ssm_combine, (da_t, dbx_t))
-        y = torch.einsum("tben,btn->bte", h_all, c_mat)
+        y = torch.einsum("tben,btn->bte", h_all, c_mat.float())
         h_fin = h_all[-1]
     y = y + xc.float() * p.d_skip.float()
     y = y * F.silu(z.float())
@@ -172,6 +179,16 @@ class RWKV6(ParamModule):
              "w_mix_b", "w_r", "w_k", "w_v", "w_g", "w_decay_a", "w_decay_b",
              "decay_base", "u_bonus", "ln_x_scale", "w_o", "cm_mu_k", "cm_wk",
              "cm_wv")
+    SPECS = {**{nm: (None,) for nm in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g",
+                                       "mu_x", "decay_base", "ln_x_scale",
+                                       "cm_mu_k")},
+             "w_mix_a": ("fsdp", None), "w_mix_b": (None, None, "fsdp"),
+             **{nm: ("fsdp", "heads") for nm in ("w_r", "w_k", "w_v", "w_g")},
+             "w_decay_a": ("fsdp", None), "w_decay_b": (None, "fsdp"),
+             "u_bonus": (None, None), "w_o": ("heads", "fsdp"),
+             "cm_wk": ("fsdp", "ff"), "cm_wv": ("ff", "fsdp")}
+    STATE_SPECS = {"wkv": ("batch", "heads", None, None),
+                   "tm_prev": ("batch", None), "cm_prev": ("batch", None)}
 
 
 def rwkv6_init(generator: torch.Generator, cfg: ModelConfig,
@@ -209,10 +226,12 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 def wkv6_apply(impl: str, r, k, v, w, u, state):
     """The WKV recurrence by ``impl``, as ``attention_math`` dispatches
     attention.  The decay ``w`` is float32, as in the reference, so the
-    kernel takes float32 params only (it raises on mixed types)."""
+    kernel takes float32 params only (it raises on mixed types).  Under
+    ``xla_flash`` the plain version runs, as the reference's rwkv6 takes
+    its kernel only under ``kernel``."""
     if impl in ("auto", "kernel"):
         return wkv_ops.wkv6(r, k, v, w, u, state)
-    if impl == "ref":
+    if impl in ("ref", "xla_flash"):
         return wkv_ref.wkv6_plain(r, k, v, w, u, state)
     raise impl_error(impl)
 

@@ -5,6 +5,7 @@ keyed like the params."""
 from repro_torch.optim.adamw import (
     AdamWState,
     adamw_init,
+    adamw_state_specs,
     adamw_update,
     make_optimizer,
 )
@@ -19,6 +20,7 @@ from repro_torch.optim.schedules import cosine_schedule, linear_warmup_cosine
 __all__ = [
     "AdamWState",
     "adamw_init",
+    "adamw_state_specs",
     "adamw_update",
     "make_optimizer",
     "clip_by_global_norm",

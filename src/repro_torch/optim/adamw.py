@@ -45,6 +45,24 @@ def adamw_init(params: dict, *, factored: bool = False) -> AdamWState:
     return AdamWState(torch.zeros((), dtype=torch.int32, device=device), m, v)
 
 
+def adamw_state_specs(param_specs: dict, params: dict, *,
+                      factored: bool = False) -> AdamWState:
+    """The logical axes of the optimizer state, mirroring ``param_specs``
+    (a dict of specs keyed like ``params``, flat or nested): ``m`` takes
+    each param's, a factored ``v`` the (row, col) statistics' (the spec
+    without its last, or without its second-to-last, axis), ``step`` none.
+    ``params`` gives the shapes (tensors, meta ones too)."""
+
+    def v_spec(spec, p):
+        if isinstance(spec, dict):
+            return {k: v_spec(spec[k], p[k]) for k in spec}
+        if factored and _should_factor(p.shape):
+            return (tuple(spec[:-1]), tuple(spec[:-2]) + tuple(spec[-1:]))
+        return spec
+
+    return AdamWState((), param_specs, v_spec(param_specs, params))
+
+
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, state: AdamWState, *, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,

@@ -345,3 +345,22 @@ def test_state_trees_and_groups_span_the_encoder():
     assert ("encoder.0.attn.wq", "encoder.1.attn.wq") in groups
     assert ("layers.0.xattn.wk", "layers.1.xattn.wk") in groups
     assert ("frontend_adapter",) in groups and ("enc_norm",) in groups
+
+
+def test_serve_over_an_empty_memory_raises(monkeypatch):
+    """ROADMAP C12: ``ServeEngine`` makes its cache without
+    ``enc_memory_len``, so seamless decodes against a memory of 0 frames.
+    The reference fails there (a reduction over no keys); the port raises
+    ``ValueError`` before any attention runs (``--seed 0``, ``--reduced``,
+    2 requests, 4 new tokens each, the launchers' own requests)."""
+    import sys
+
+    from repro.launch import serve as r_serve
+    from repro_torch.launch import serve
+
+    argv = ["--arch", ARCH, "--reduced", "--requests", "2", "--max-new", "4"]
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])  # its key is seed 0
+    with pytest.raises(ValueError):
+        r_serve.main()
+    with pytest.raises(ValueError, match="empty encoder memory"):
+        serve.main([*argv, "--seed", "0", "--device", "cpu"])

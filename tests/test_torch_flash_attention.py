@@ -121,3 +121,32 @@ def test_jitted_kernel_decode_raises_in_reference_not_in_port():
     np.testing.assert_allclose(got.numpy()[..., : p_cfg.vocab],
                                np.asarray(want)[..., : p_cfg.vocab],
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["kv_len_0", "before_every_key",
+                                  "windowed_out", "no_keys"])
+def test_row_that_sees_no_key_is_zero(case):
+    """ROADMAP C12: a row that sees no key comes out 0 in the plain version,
+    as in the kernel and ``mha_split_plain``; a row that sees a key is the
+    softmax as before (``mha_ref`` on the visible keys)."""
+    skv = 0 if case == "no_keys" else 40
+    q, k, v = qkv(np.random.default_rng(11), 2, 4, 2, 6, skv, 16)
+    kw = {"kv_len_0": dict(q_offset=10, kv_len=0),
+          "before_every_key": dict(q_offset=-3),
+          "windowed_out": dict(q_offset=30, window=4, kv_len=20),
+          "no_keys": dict(q_offset=0)}[case]
+    tq, tk, tv = map(torch.as_tensor, (q, k, v))
+    got = ref.mha_plain(tq, tk, tv, causal=True, **kw)
+    assert got.shape == tq.shape and torch.isfinite(got).all()
+    mask = ref.visible_mask(6, skv, causal=True, **kw)
+    seen = mask.any(-1)
+    assert torch.equal(got[:, :, ~seen], torch.zeros_like(got[:, :, ~seen]))
+    if case == "before_every_key":  # rows 3-5 see keys 0..row-3
+        assert seen.tolist() == [False] * 3 + [True] * 3
+        jq, jk, jv = (jnp.asarray(a) for a in (q[:, :, 3:], k, v))
+        close(got[:, :, 3:], r_mha_ref(jq, jk, jv, causal=True), 2e-5)
+    else:
+        assert not seen.any()
+    assert torch.equal(ops.flash_attention(tq, tk, tv, True, kw.get("window"),
+                                           kw["q_offset"], kw.get("kv_len")),
+                       got)

@@ -532,6 +532,32 @@ def test_flash_attention_equals_plain_version(cuda, case, dtype):
 
 
 @pytest.mark.parametrize("case", [
+    (8, 32, 8, 1, 512, 64, True, None, 0, 0),       # decode, kv_len 0
+    (2, 8, 2, 5, 512, 64, True, None, 200, 0),      # decode, Sq 5
+    (1, 32, 8, 300, 300, 64, True, None, 0, 0),     # prefill, kv_len 0
+    (1, 4, 2, 64, 128, 128, True, None, -40, None),  # prefill, rows before
+])                                                   # every key
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_row_that_sees_no_key_is_zero(cuda, case, dtype):
+    """ROADMAP C12: both kernels give 0 on a row that sees no key, as the
+    plain version does, and the plain version's value on every other row."""
+    b, hq, hkv, sq, skv, d, causal, window, q_offset, kv_len = case
+    gen = torch.Generator(cuda).manual_seed(sq + skv)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    got = fa_ops.flash_attention(q, k, v, causal, window, q_offset, kv_len)
+    want = fa_ref.mha_plain(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset, kv_len=kv_len)
+    seen = fa_ref.visible_mask(sq, skv, causal=causal, window=window,
+                               q_offset=q_offset, kv_len=kv_len,
+                               device=cuda).any(-1)
+    assert not seen.all()
+    assert torch.equal(got[:, :, ~seen], torch.zeros_like(got[:, :, ~seen]))
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", [
     (8, 32, 8, 1, 512, 64, True, None, 93, 94),     # granite decode
     (8, 32, 8, 1, 512, 64, True, None, 511, 512),   # full cache: a cluster
     (1, 32, 8, 2048, 2048, 64, True, None, 0, None),  # prefill

@@ -11,7 +11,8 @@ with the reference's params carried across by ``params_from_numpy``.
 * ``forward`` logits equal the reference's: 1e-4;
 * decode == prefill within the port, as the reference's arch smoke test
   checks it: 2e-3;
-* ``"xla_flash"`` raises ``ValueError`` (the hybrid, encdec and vlm
+* ``"xla_flash"`` runs and equals the reference's ``xla_flash`` (1e-4),
+  and an unknown impl raises ``ValueError`` (the hybrid, encdec and vlm
   families are held in ``tests/test_torch_{hybrid,encdec,vlm}.py``);
 * ``init_params`` draws the reference's layouts.
 """
@@ -128,13 +129,25 @@ def test_decode_matches_prefill(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_xla_flash_raises(arch):
-    _, cfg = configs(arch, "ref", "xla_flash")
-    params = port_params(arch, dataclasses.replace(cfg, attn_impl="ref"))
+    """ROADMAP A14: ``"xla_flash"`` no longer raises; its decode and forward
+    equal the reference's ``xla_flash``.  An impl neither package knows
+    raises ``ValueError``, naming the choices."""
+    r_cfg, cfg = configs(arch, "xla_flash", "xla_flash")
+    params = port_params(arch, cfg)
+    toks = tokens(4, 4, cfg.vocab)
+    want, _ = jax.jit(lambda p, t: RM.forward(p, r_cfg, t))(ref_params(arch),
+                                                            jnp.asarray(toks))
+    assert_logits(M.forward(params, cfg, toks)[0], want, cfg.vocab, 1e-4)
+    r_cache, _ = RM.init_cache(r_cfg, BATCH, 16, jnp.float32)
+    want, _ = RM.decode_step(ref_params(arch), r_cfg, r_cache,
+                             jnp.asarray(toks[:, :1]), 0)
+    got, _ = M.decode_step(params, cfg, M.init_cache(cfg, BATCH, 16,
+                                                     device="cpu"),
+                           toks[:, :1], 0)
+    assert_logits(got, want, cfg.vocab, 1e-4)
+    bad = dataclasses.replace(cfg, attn_impl="xla-flash")
     with pytest.raises(ValueError, match="xla_flash"):
-        M.decode_step(params, cfg, M.init_cache(cfg, BATCH, 16, device="cpu"),
-                      tokens(4, 1, cfg.vocab), 0)
-    with pytest.raises(ValueError, match="xla_flash"):
-        M.forward(params, cfg, tokens(4, 4, cfg.vocab))
+        M.forward(params, bad, toks)
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["starcoder2-15b"])
