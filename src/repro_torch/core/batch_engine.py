@@ -377,9 +377,10 @@ class BatchQueryEngine:
         Each round retires the rows whose alive mask is stable (their
         candidates are final) and compacts the survivors into a smaller
         power-of-two pad, so the filter work tracks the sum of per-query
-        rounds rather than the batch's deepest query.
+        rounds rather than the batch's deepest query.  A query's
+        ``stats.filter_seconds`` is the wall time of the rounds in which its
+        row was live (each round's dispatch and its one sync).
         """
-        t0 = time.perf_counter()
         b_pad = min(self.max_batch, ceil_pow2(len(chunk)))
         qb = stack_queries([queries[i] for i in chunk], self._host_data,
                            d_max, max_p, u_pad, l_pad, b_pad,
@@ -406,12 +407,15 @@ class BatchQueryEngine:
             for k, r in enumerate(rows):
                 done[row_query[r]] = (alive_np[k], cand_np[k], rounds)
 
+        live_s = np.zeros(len(chunk))  # chunk position -> its rounds' time
         rounds = 0
         while row_query and rounds < self.max_iters:
+            t_round = time.perf_counter()
             with obsv.span("batch.round", round=rounds, live=len(row_query)):
                 alive, cand, changed = self._round(
                     qb, alive, l_pad=l_pad, d_max=d_max, max_p=max_p)
                 conv = ~changed.cpu().numpy()  # the round's one sync
+            live_s[row_query] += time.perf_counter() - t_round
             rounds += 1
             if not conv[:len(row_query)].any():
                 continue
@@ -436,16 +440,17 @@ class BatchQueryEngine:
             # supersets of the fixed point, so search still returns exactly
             # the true embeddings.  One more round gives candidates aligned
             # with the current (compacted) rows.
+            t_round = time.perf_counter()
             alive, cand, _ = self._round(qb, alive, l_pad=l_pad, d_max=d_max,
                                          max_p=max_p)
+            live_s[row_query] += time.perf_counter() - t_round
             rounds += 1
             retire(list(range(len(row_query))), alive, cand, rounds)
-        filter_s = time.perf_counter() - t0
         for pos, i in enumerate(chunk):
             q = queries[i]
             alive_row, cand_row, q_rounds = done[pos]
             stats = QueryStats(vertices_before=self.data.n_vertices,
-                               filter_seconds=filter_s / len(chunk),
+                               filter_seconds=float(live_s[pos]),
                                ilgf_iterations=q_rounds)
             stats.extras["batch"] = obsv.BatchReport(
                 bucket=(d_max, l_pad, u_pad), batch_size=len(chunk),

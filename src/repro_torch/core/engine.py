@@ -68,7 +68,9 @@ def search_filtered(
 
     ``alive``: (V,) bool fixed-point mask; ``candidates``: (V, U) bool C(u)
     columns over original vertex ids.  Returns embeddings over original ids
-    and fills the search-side fields of ``stats`` in place.
+    and fills the search-side fields of ``stats`` in place.  With an active
+    tracer the compaction is a ``query.compact`` span (``n_alive``: the
+    filtered vertex count N).
 
     ``planner``: an optional ``core.planner.QueryPlanner``; the matching
     order then comes from its cost model, fed the post-filter candidate
@@ -99,8 +101,11 @@ def search_filtered(
             stats.extras["enum"] = obsv.EnumReport.empty()
         return np.zeros((0, query.n_vertices), np.int64)
 
-    sub, old_ids = induced_subgraph(data, alive)
-    cand = np.asarray(candidates)[alive]
+    with obsv.span("query.compact") as compact_span:
+        sub, old_ids = induced_subgraph(data, alive)
+        cand = np.asarray(candidates)[alive]
+        if obsv.enabled():
+            compact_span.set_attrs(n_alive=stats.vertices_after)
     if khop > 1 and sub.n_vertices <= search_vertex_cap:
         with obsv.span("query.refine", khop=khop):
             t_ref = time.perf_counter()

@@ -305,8 +305,11 @@ def empty_enum_report() -> dict:
     * ``device_rounds`` — expansion rounds executed (all on the device);
     * ``host_levels``   — always 0 (no level falls back to the host);
     * ``count_seconds`` / ``scan_seconds`` / ``emit_seconds`` — per-phase
-      wall-clock totals across rounds (each phase ends in a device sync
-      when a report is requested);
+      wall-clock totals across rounds; a level's three phases are
+      contiguous, the emit's with the advance to the next level's blocks.
+      The count ends in the level's one host read; the emit ends in a
+      device sync only with an active tracer (``obsv.enabled()``), so with
+      tracing off ``emit_seconds`` reads the emit's host dispatch time;
     * ``max_table_rows`` — peak true survivor count over all levels;
     * ``max_emit_rows``  — peak allocated (128-aligned) table rows;
     * ``scan_path``     — ``"device"``: the scan is an on-device cumsum;
@@ -356,9 +359,13 @@ def device_join_search(
        128-aligned buffer, which one gather decodes into the next table.
 
     ``report``: optional dict filled with the ``empty_enum_report()``
-    schema on every exit path.  With an active tracer each level emits
-    ``enum.count`` / ``enum.scan`` / ``enum.emit`` spans.  This is the
-    one-shard case of ``sharded_device_join_search``, which runs it.
+    schema on every exit path.  With an active tracer the join opens
+    ``enum.build`` (adjacency, edge-label matrix, matching order, seed
+    tables), then per level ``enum.stage`` (candidates, constraints and
+    their uploads) and ``enum.count`` / ``enum.scan`` / ``enum.emit``,
+    and last ``enum.assemble`` (the copy back); see ``_partitioned_join``
+    for their attributes.  This is the one-shard case of
+    ``sharded_device_join_search``, which runs it.
     """
     return _partitioned_join(data, query, candidates,
                              dist.device_mesh(1, devices=resolve_device(device)),
@@ -410,33 +417,45 @@ def sharded_device_join_search(
 def _partitioned_join(data, query, candidates, mesh, *, order,
                       max_embeddings, report, rebalance_threshold):
     """The two-phase join over the shards of ``mesh`` (one shard: the
-    single-device join)."""
+    single-device join).
+
+    Spans, with an active tracer only: ``enum.build`` (``h2d_bytes``: the
+    seed tables), per level ``enum.stage`` (``h2d_bytes``: the candidates,
+    their mask, the constraints and, on the first level, the (N, N) int32
+    edge-label matrix) and ``enum.count`` / ``enum.scan`` / ``enum.emit``,
+    contiguous as their ``*_seconds`` in the report, and ``enum.assemble``.
+    ``h2d_bytes`` counts every tensor uploaded, once per distinct device.
+    """
+    traced = obsv.enabled()
     n_shards = mesh.n_shards
-    cand = as_numpy(candidates)
-    n_q = query.n_vertices
-    q_adj = _host_adjacency(query)
-    elab_np = _dense_edge_labels(data, data.n_vertices)
-    elab = None
-    order = _matching_order(order, cand, q_adj, n_q)
-    pos_of = {u: i for i, u in enumerate(order)}
+    with obsv.span("enum.build") as build_span:
+        cand = as_numpy(candidates)
+        n_q = query.n_vertices
+        q_adj = _host_adjacency(query)
+        elab_np = _dense_edge_labels(data, data.n_vertices)
+        elab = None
+        order = _matching_order(order, cand, q_adj, n_q)
+        pos_of = {u: i for i, u in enumerate(order)}
 
-    stats = empty_enum_report()
-    stats["enum_shards"] = n_shards
-    stats["scan_path"] = "device"
-    if report is not None:
-        report.update(stats)
+        stats = empty_enum_report()
+        stats["enum_shards"] = n_shards
+        stats["scan_path"] = "device"
+        if report is not None:
+            report.update(stats)
 
-    # seed: equal-rows contiguous blocks of u_0's candidate list
-    seed_ids = np.nonzero(cand[:, order[0]])[0].astype(np.int32)
-    total = int(seed_ids.size)
-    bounds = dist.enum_row_blocks(np.ones(total, np.int64), n_shards)
-    sizes = np.diff(bounds).astype(np.int64)
-    tables = []
-    for i, dev in enumerate(mesh.devices):
-        block = seed_ids[bounds[i] : bounds[i + 1]]
-        tables.append(torch.as_tensor(
-            np.pad(block, (0, _align_rows(block.size) - block.size)
-                   ).reshape(-1, 1), device=dev))
+        # seed: equal-rows contiguous blocks of u_0's candidate list
+        seed_ids = np.nonzero(cand[:, order[0]])[0].astype(np.int32)
+        total = int(seed_ids.size)
+        bounds = dist.enum_row_blocks(np.ones(total, np.int64), n_shards)
+        sizes = np.diff(bounds).astype(np.int64)
+        tables = []
+        for i, dev in enumerate(mesh.devices):
+            block = seed_ids[bounds[i] : bounds[i + 1]]
+            tables.append(torch.as_tensor(
+                np.pad(block, (0, _align_rows(block.size) - block.size)
+                       ).reshape(-1, 1), device=dev))
+        if traced:
+            build_span.set_attrs(h2d_bytes=sum(tab.nbytes for tab in tables))
     stats["max_table_rows"] = total
     stats["max_emit_rows"] = n_shards * _align_rows(int(sizes.max()))
     stats["emit_rows_max"] = int(sizes.max())
@@ -444,24 +463,31 @@ def _partitioned_join(data, query, candidates, mesh, *, order,
 
     for t in range(1, n_q):
         u = order[t]
-        cand_ids = np.nonzero(cand[:, u])[0].astype(np.int32)
+        with obsv.span("enum.stage") as stage_span:
+            cand_ids = np.nonzero(cand[:, u])[0].astype(np.int32)
+            if total and cand_ids.size:
+                q_pos, q_lab, q_val = _level_constraints(q_adj, pos_of, u, t)
+                j = int(q_pos.size)
+                c_pad = max(128, -(-cand_ids.size // 128) * 128)
+                first = elab is None
+                if first:
+                    elab = dist.replicate(torch.as_tensor(elab_np), mesh)
+                level = (
+                    dist.replicate(torch.as_tensor(
+                        np.pad(cand_ids, (0, c_pad - cand_ids.size))), mesh),
+                    dist.replicate(torch.arange(c_pad) < cand_ids.size, mesh),
+                    elab,
+                    *(dist.replicate(torch.as_tensor(x), mesh)
+                      for x in (q_pos, q_lab, q_val)),
+                )
+                if traced:
+                    h2d = sum(x[0].nbytes for x in level
+                              if first or x is not elab)
+                    stage_span.set_attrs(h2d_bytes=h2d * len(set(mesh.devices)))
         if total == 0 or cand_ids.size == 0:
             if report is not None:
                 report.update(stats)
             return np.zeros((0, n_q), dtype=np.int64)
-        q_pos, q_lab, q_val = _level_constraints(q_adj, pos_of, u, t)
-        j = int(q_pos.size)
-        c_pad = max(128, -(-cand_ids.size // 128) * 128)
-        if elab is None:
-            elab = dist.replicate(torch.as_tensor(elab_np), mesh)
-        level = (
-            dist.replicate(torch.as_tensor(
-                np.pad(cand_ids, (0, c_pad - cand_ids.size))), mesh),
-            dist.replicate(torch.arange(c_pad) < cand_ids.size, mesh),
-            elab,
-            *(dist.replicate(torch.as_tensor(x), mesh)
-              for x in (q_pos, q_lab, q_val)),
-        )
         stats["device_rounds"] += 1
         rows_per = dist.enum_rows_per(c_pad, j)
         rebalanced = False
@@ -477,7 +503,9 @@ def _partitioned_join(data, query, candidates, mesh, *, order,
         obsv.span_at("enum.count", t0, t1, level=t, rows=total,
                      shards=n_shards)
 
-        t0 = time.perf_counter()
+        # the level's phases are contiguous: the scan starts where the
+        # count ends, the emit where the scan ends
+        t0 = t1
         new_total = int(shard_tot.sum())
         if new_total == 0:
             t1 = time.perf_counter()
@@ -530,16 +558,13 @@ def _partitioned_join(data, query, candidates, mesh, *, order,
         obsv.span_at("enum.scan", t0, t1, level=t)
 
         # -- emit: each shard into its exactly sized block
-        t0 = time.perf_counter()
+        t0 = t1
         out_cap = _align_rows(int(shard_tot.max()))
         tables = dist.enum_emit(tables, sizes, row_off, shard_tot,
                                 [_align_rows(n) for n in shard_tot], level,
                                 c_pad, rows_per)
-        if report is not None:
-            dist.sync(mesh)
-        t1 = time.perf_counter()
-        stats["emit_seconds"] += t1 - t0
-        obsv.span_at("enum.emit", t0, t1, level=t, rows=new_total)
+        if traced:
+            dist.sync(mesh)  # the emit's span then holds the device's work
 
         # advance: children become the next level's contiguous blocks
         sizes = shard_tot.astype(np.int64)
@@ -553,18 +578,22 @@ def _partitioned_join(data, query, candidates, mesh, *, order,
         if int(sizes.max()) > stats["emit_rows_max"]:
             stats["emit_rows_max"] = int(sizes.max())
             stats["emit_rows_min"] = int(sizes.min())
+        t1 = time.perf_counter()
+        stats["emit_seconds"] += t1 - t0
+        obsv.span_at("enum.emit", t0, t1, level=t, rows=new_total)
 
     # assembly: the live prefixes in shard order are the global row order,
     # so truncation is a prefix
-    n_keep = total if max_embeddings is None else min(total, max_embeddings)
-    if total == 0:
-        flat = np.zeros((0, n_q), np.int32)
-    else:
-        flat = np.concatenate([tab[: sizes[i]].cpu().numpy()
-                               for i, tab in enumerate(tables)])[:n_keep]
-    if report is not None:
-        report.update(stats)
-    return _restore_query_order(flat, order)
+    with obsv.span("enum.assemble"):
+        n_keep = total if max_embeddings is None else min(total, max_embeddings)
+        if total == 0:
+            flat = np.zeros((0, n_q), np.int32)
+        else:
+            flat = np.concatenate([tab[: sizes[i]].cpu().numpy()
+                                   for i, tab in enumerate(tables)])[:n_keep]
+        if report is not None:
+            report.update(stats)
+        return _restore_query_order(flat, order)
 
 
 def embeddings_equal(a: np.ndarray, b: np.ndarray) -> bool:

@@ -25,11 +25,17 @@ no branch beyond one global check.  Install a tracer for a scope with::
 All timestamps come from ``time.perf_counter_ns()`` (monotonic);
 ``span_at`` backfills *retroactive* spans (e.g. queue wait measured from a
 ``time.perf_counter()`` submission stamp — same clock, float seconds).
+
+While a tracer is installed, a ``gc.callbacks`` hook records each garbage
+collection as a ``runtime.gc`` span under whatever span is open; clearing
+the tracer removes the hook.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
+import itertools
 import json
 import time
 
@@ -94,8 +100,9 @@ class Tracer:
     def __init__(self):
         self.spans: list[Span] = []   # finished, in completion order
         self._stack: list[Span] = []  # open, root → leaf
-        self._next_span = 1
-        self._next_trace = 1
+        self._span_ids = itertools.count(1)
+        self._trace_ids = itertools.count(1)
+        self._gc_start: float | None = None  # perf_counter() of a running collection
 
     # -- span lifecycle ------------------------------------------------------
 
@@ -110,16 +117,17 @@ class Tracer:
         """
         if parent is None and not detached and self._stack:
             parent = self._stack[-1]
+        # the ids are drawn before the allocations below: a collection that
+        # one of them triggers records its ``runtime.gc`` span in between
+        span_id = next(self._span_ids)
         if parent is None:
-            trace_id = self._next_trace
-            self._next_trace += 1
+            trace_id = next(self._trace_ids)
             parent_id = None
         else:
             trace_id = parent.trace_id
             parent_id = parent.span_id
-        s = Span(name, trace_id, self._next_span, parent_id,
-                 time.perf_counter_ns(), dict(attrs) if attrs else None)
-        self._next_span += 1
+        s = Span(name, trace_id, span_id, parent_id, time.perf_counter_ns(),
+                 dict(attrs) if attrs else None)
         if not detached:
             self._stack.append(s)
         return s
@@ -227,11 +235,32 @@ class Tracer:
 _ACTIVE: Tracer | None = None
 
 
+def _gc_hook(phase: str, info: dict) -> None:
+    """``gc.callbacks`` entry: a collection's start and stop become one
+    ``runtime.gc`` span of the active tracer."""
+    tracer = _ACTIVE
+    if tracer is None:
+        return
+    if phase == "start":
+        tracer._gc_start = time.perf_counter()
+    elif tracer._gc_start is not None:
+        tracer.span_at("runtime.gc", tracer._gc_start, time.perf_counter())
+        tracer._gc_start = None
+
+
 def set_tracer(tracer: Tracer | None) -> Tracer | None:
-    """Install (or clear) the process-global tracer; returns the previous."""
+    """Install (or clear) the process-global tracer; returns the previous.
+
+    The garbage collector's hook is in ``gc.callbacks`` only while a tracer
+    is installed."""
     global _ACTIVE
     prev = _ACTIVE
     _ACTIVE = tracer
+    if tracer is None:
+        if _gc_hook in gc.callbacks:
+            gc.callbacks.remove(_gc_hook)
+    elif _gc_hook not in gc.callbacks:
+        gc.callbacks.append(_gc_hook)
     return prev
 
 

@@ -165,6 +165,7 @@ class _Request:
     max_embeddings: Optional[int]
     submitted_at: float
     rounds: int = 0
+    filter_seconds: float = 0.0  # wall time of this request's filter rounds
     slot: int = -1
     epoch: int = -1
     span: object = None  # obsv.Span root, open from admit to finalize
@@ -635,6 +636,7 @@ class GraphQueryService:
             t_round_end = time.perf_counter()
             for req in group:
                 req.rounds += 1
+                req.filter_seconds += t_round_end - t_round
                 # one dispatch serves the whole epoch group; the shared
                 # round is mirrored into each member's request trace
                 obsv.span_at("service.filter_round", t_round, t_round_end,
@@ -808,9 +810,10 @@ class GraphQueryService:
         recorded in ``failures``, frees the slot (releasing its epoch pin)
         and propagates, and the service stays usable."""
         dev = self.device
-        ords, counts, digest, mnd = prepare_padded_query(
-            req.query, entry.host_graph.vlabels, self.d_max, self.max_p,
-            self.cfg.max_query_vertices, self.cfg.max_query_labels)
+        with obsv.span("service.ords"):
+            ords, counts, digest, mnd = prepare_padded_query(
+                req.query, entry.host_graph.vlabels, self.d_max, self.max_p,
+                self.cfg.max_query_vertices, self.cfg.max_query_labels)
         ords_t = torch.as_tensor(ords, device=dev)
         alive_row = ords_t > 0
         if entry.snapshot.index is not None:
@@ -843,8 +846,12 @@ class GraphQueryService:
 
     def _finalize(self, req: _Request, alive, cand):
         u_q = req.query.n_vertices
-        alive_np = alive[req.slot].cpu().numpy()
-        cand_np = cand[req.slot, :, :u_q].cpu().numpy()
+        with obsv.activate(req.span), \
+                obsv.span("service.readback") as readback_span:
+            alive_np = alive[req.slot].cpu().numpy()
+            cand_np = cand[req.slot, :, :u_q].cpu().numpy()
+            if obsv.enabled():
+                readback_span.set_attrs(rid=req.rid)
         stats = QueryStats(vertices_before=self.n_vertices,
                            ilgf_iterations=req.rounds)
         deadline_missed = (req.deadline is not None
@@ -864,7 +871,6 @@ class GraphQueryService:
         if req.epoch in self._ooc_tel:
             # the epoch's accumulated report (never mutated in place)
             stats.extras["ooc"] = self._ooc_tel[req.epoch]
-        t0 = time.perf_counter()
         with obsv.activate(req.span), \
                 obsv.span("service.finalize", rid=req.rid, rounds=req.rounds):
             emb = search_filtered(
@@ -885,12 +891,15 @@ class GraphQueryService:
             obsv.end(req.span)
         self._m_requests.inc(1, status="completed")
         self._m_embeddings.inc(len(emb))
-        self._m_stage.observe(stats.filter_seconds, stage="filter")
+        # the request's own filter rounds (and any k-hop refinement)
+        self._m_stage.observe(req.filter_seconds + stats.filter_seconds,
+                              stage="filter")
         plan = stats.extras.get("plan")
         if plan is not None:
             self._m_stage.observe(float(plan["plan_seconds"]), stage="plan")
         self._m_stage.observe(stats.search_seconds, stage="enumerate")
-        self._m_stage.observe(time.perf_counter() - t0, stage="total")
+        self._m_stage.observe(time.perf_counter() - req.submitted_at,
+                              stage="total")  # submit to result
         return req.rid, emb, stats
 
     def _free(self, slot: int):

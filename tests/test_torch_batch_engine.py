@@ -256,3 +256,24 @@ def test_empty_batch_and_later_slices_raise():
         BatchQueryEngine(port(g), mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="enumerator"):
         BatchQueryEngine(port(g), enumerator="gpu", device="cpu")
+
+
+def test_filter_seconds_follow_each_querys_own_rounds():
+    """A query's ``filter_seconds`` sums the rounds its row was live in: in
+    one chunk, a query that converged in more rounds took longer, and none
+    took longer than the chunk's deepest."""
+    g = random_labeled_graph(300, 1200, 3, seed=21)
+    queries = [port(random_walk_query(g, 5, seed=40 + i)) for i in range(12)]
+    queries.append(port(all_pruned_query()))
+    got = BatchQueryEngine(port(g), device="cpu").query_batch(queries)
+    by_bucket: dict = {}
+    for _, stats in got:
+        by_bucket.setdefault(stats.extras["batch"]["bucket"], []).append(stats)
+    pairs = 0
+    for chunk in by_bucket.values():
+        for a in chunk:
+            for b in chunk:
+                if a.ilgf_iterations < b.ilgf_iterations:
+                    assert 0 < a.filter_seconds < b.filter_seconds
+                    pairs += 1
+    assert pairs >= 1

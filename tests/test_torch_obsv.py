@@ -6,6 +6,7 @@ service's traces and metrics on an in-memory ``GraphStore`` (the
 reference's out-of-core version of those tests waits for ROADMAP A10).
 """
 
+import gc
 import json
 import time
 
@@ -20,7 +21,8 @@ from repro.graphs.store import GraphStore as RefStore
 from repro.serve import GraphQueryService as RefService
 from repro.serve import GraphServiceConfig as RefConfig
 from repro_torch import obsv
-from repro_torch.core import IncrementalIndex
+from repro_torch.core import IncrementalIndex, device_join_search
+from repro_torch.core import distributed as dist
 from repro_torch.graphs import GraphStore, graph_from_numpy
 from repro_torch.serve import GraphQueryService, GraphServiceConfig
 
@@ -267,9 +269,13 @@ def test_service_single_trace_and_metrics():
             "service.epoch_pin", "service.filter_round", "service.finalize",
             "query.plan", "query.enumerate", "enum.count",
             "enum.emit"} <= in_trace
-    # the reference's trace of the same request has the same span names
+    # the reference's trace of the same request has every span name of
+    # the port's but the port's own finer spans (and a collection's, when
+    # the collector ran inside the scope)
     ref_tr = traces["ref"][0]
-    assert tr.names() == ref_tr.names()
+    assert ref_tr.names() <= tr.names()
+    assert tr.names() - ref_tr.names() == PORT_SPANS | (
+        {"runtime.gc"} & tr.names())
     events = json.loads(json.dumps(tr.to_chrome_trace()))["traceEvents"]
     assert events and all(e["ph"] == "X" and e["dur"] >= 0 for e in events)
     assert [e["ts"] for e in events] == sorted(e["ts"] for e in events)
@@ -303,3 +309,169 @@ def test_service_untraced_results_identical():
     assert "service.request" in tr.names()
     for a, b in zip(plain, traced):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the port's own spans: the join's stages, compaction, read-back, the host
+# ords, the collector
+# ---------------------------------------------------------------------------
+
+# span names the port opens that the reference's taxonomy lacks
+PORT_SPANS = {"enum.build", "enum.stage", "enum.assemble", "query.compact",
+              "service.readback", "service.ords"}
+
+
+def _one_traced_request(g, q):
+    _, svc = _twin_service(g)
+    with obsv.tracing() as tr:
+        rid = svc.submit(port(q))
+        (rid2, emb, stats), = svc.run_to_completion()
+    assert rid2 == rid
+    svc.shutdown()
+    return tr, rid, emb, stats
+
+
+def test_service_trace_holds_the_port_spans_under_their_parents():
+    g = random_labeled_graph(150, 500, 4, seed=7)
+    q = random_walk_query(g, 5, seed=9)
+    tr, rid, emb, stats = _one_traced_request(g, q)
+    assert not tr.open_spans and all(s.closed for s in tr.spans)
+    by_id = {s.span_id: s for s in tr.spans}
+
+    def parent(s):
+        return by_id[s.parent_id].name
+
+    def only(name):
+        found = [s for s in tr.spans if s.name == name]
+        assert len(found) == 1, (name, found)
+        return found[0]
+
+    readback = only("service.readback")
+    assert parent(readback) == "service.request"
+    assert readback.attrs["rid"] == rid
+    assert parent(only("service.ords")) == "service.admit"
+    compact = only("query.compact")
+    assert parent(compact) == "service.finalize"
+    assert compact.attrs["n_alive"] == stats.vertices_after > 0
+    build, assemble = only("enum.build"), only("enum.assemble")
+    stages = sorted((s for s in tr.spans if s.name == "enum.stage"),
+                    key=lambda s: s.start_ns)
+    counts = sorted((s for s in tr.spans if s.name == "enum.count"),
+                    key=lambda s: s.start_ns)
+    levels = stats.extras["enum"]["levels"]
+    assert len(stages) == len(levels) == q.n_vertices - 1 and len(emb) >= 1
+    for s in (build, assemble, *stages):
+        assert parent(s) == "query.enumerate"
+    # build, then each level's stage before its count, then the assembly
+    assert build.end_ns <= stages[0].start_ns
+    for stage, count in zip(stages, counts):
+        assert stage.end_ns <= count.start_ns
+    assert counts[-1].end_ns <= assemble.start_ns
+
+
+def _label_join(seed, n_q):
+    g = random_labeled_graph(120, 420, 3, seed=seed)
+    q = random_walk_query(g, n_q, seed=seed + 1)
+    data, query = port(g), port(q)
+    vl, ql = np.asarray(g.vlabels), np.asarray(q.vlabels)
+    cand = vl[:, None] == ql[None, :]
+    return data, query, cand
+
+
+def _pad128(n):
+    return max(128, -(-n // 128) * 128)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_join_h2d_bytes_are_the_uploaded_tensors(seed):
+    data, query, cand = _label_join(seed, 5)
+    order = list(range(query.n_vertices))
+    with obsv.tracing() as tr:
+        emb = device_join_search(data, query, cand, order=order, report={},
+                                 device="cpu")
+    assert emb.shape[0] >= 1
+    n = data.n_vertices
+    src, dst = np.asarray(query.src), np.asarray(query.dst)
+    want = 4 * _pad128(int(cand[:, order[0]].sum()))  # seed table, int32
+    want += 4 * n * n  # the (N, N) int32 edge-label matrix, once
+    for t in range(1, len(order)):
+        c_pad = _pad128(int(cand[:, order[t]].sum()))
+        j = max(1, len({int(w) for v, w in zip(src, dst)
+                        if v == order[t] and w < t}))
+        # candidates int32 + their mask; positions, labels int32 + valid
+        want += 5 * c_pad + 9 * j
+    got = sum(s.attrs["h2d_bytes"] for s in tr.spans
+              if s.name in ("enum.build", "enum.stage"))
+    assert got == want
+
+
+def test_gc_collections_are_spans_only_while_tracing():
+    def port_hooks():
+        return [cb for cb in gc.callbacks
+                if getattr(cb, "__module__", "").startswith("repro_torch")]
+
+    assert not port_hooks()
+    with obsv.tracing() as tr:
+        assert port_hooks()
+        with obsv.span("outer") as outer:
+            gc.collect()
+    assert not port_hooks()
+    spans = [s for s in tr.spans if s.name == "runtime.gc"]
+    assert spans and all(s.closed and s.duration_ns >= 0 for s in spans)
+    assert any(s.parent_id == outer.span_id for s in spans)
+    gc.collect()  # no tracer: nothing recorded, nothing raised
+    assert len([s for s in tr.spans if s.name == "runtime.gc"]) == len(spans)
+
+
+def test_collections_inside_span_bookkeeping_keep_span_ids_unique():
+    """A collection can start inside ``start_span`` (its allocations trigger
+    it): the ``runtime.gc`` span it records must not take the id of the
+    span being opened."""
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        with obsv.tracing() as tr:
+            for i in range(300):
+                with obsv.span("outer", i=i, pad=[i]):
+                    obsv.span_at("inner", 0.0, 0.0, i=i, pad={"i": i})
+    finally:
+        gc.set_threshold(*threshold)
+    ids = [s.span_id for s in tr.spans]
+    assert sum(s.name == "runtime.gc" for s in tr.spans) > 0
+    assert len(ids) == len(set(ids))
+    by_id = {s.span_id: s for s in tr.spans}
+    for s in tr.spans:
+        if s.name == "inner":
+            assert by_id[s.parent_id].name == "outer"
+
+
+def test_emit_syncs_only_when_traced(monkeypatch):
+    data, query, cand = _label_join(5, 5)
+    calls = []
+    monkeypatch.setattr(dist, "sync", lambda mesh: calls.append(mesh))
+    report: dict = {}
+    untraced = device_join_search(data, query, cand, report=report,
+                                  device="cpu")
+    assert calls == []
+    with obsv.tracing() as tr:
+        traced = device_join_search(data, query, cand, report={},
+                                    device="cpu")
+    emitted = [s for s in tr.spans if s.name == "enum.emit"]
+    assert len(calls) == len(emitted) == sum(
+        1 for lv in report["levels"] if sum(lv["emit_rows"]) > 0) >= 1
+    np.testing.assert_array_equal(untraced, traced)
+
+
+def test_stage_histogram_reads_the_request():
+    g = random_labeled_graph(150, 500, 4, seed=7)
+    _, svc = _twin_service(g)
+    t_submit = time.perf_counter()
+    svc.submit(port(random_walk_query(g, 4, seed=8)))
+    (_, _, stats), = svc.run_to_completion()
+    elapsed = time.perf_counter() - t_submit
+    series = svc.metrics_snapshot()["repro_service_stage_seconds"]["series"]
+    filt, total = series[(("stage", "filter"),)], series[(("stage", "total"),)]
+    assert filt["count"] == total["count"] == 1
+    assert 0 < filt["sum"] < total["sum"] <= elapsed
+    assert total["sum"] > stats.search_seconds
+    svc.shutdown()
