@@ -545,19 +545,29 @@ def phase_build(kernel_ops):
 
 def record_levels(ops, search, engine, query):
     """Run one device-join query and return the operands of each count
-    launch (one per row slice of each level), recorded on the way."""
+    launch (one per row slice of each level), recorded on the way in the
+    public entries' form: the join launches with every row, candidate and
+    constraint live, so the masks are all true."""
     calls = []
 
-    def recording(*args):
-        calls.append(args)  # the join replaces tables, never writes them
-        return ops.embed_join_count(*args)
+    def recording(counts, table, cand, elab, q_pos, q_lab):
+        dev = table.device
+        # the join replaces tables, never writes them
+        calls.append((table, torch.ones(table.shape[0], dtype=torch.bool,
+                                        device=dev),
+                      cand, torch.ones(cand.shape[0], dtype=torch.bool,
+                                       device=dev),
+                      elab, q_pos, q_lab,
+                      torch.ones(q_pos.shape[0], dtype=torch.bool,
+                                 device=dev)))
+        return ops.count_live(counts, table, cand, elab, q_pos, q_lab)
 
     # the device join's shard steps see a recording stand-in for the ops
     # module
     shard_steps = search.dist
     shard_steps.join_ops = types.SimpleNamespace(
-        embed_join=ops.embed_join, embed_join_count=recording,
-        embed_join_emit=ops.embed_join_emit)
+        embed_join=ops.embed_join, count_live=recording,
+        emit_table_live=ops.emit_table_live)
     try:
         engine.query(query)
     finally:
@@ -623,11 +633,24 @@ def check_level(ops, ref, name, args, row_base):
     fill = torch.full((total + 5,), -7, dtype=torch.int64, device=args[0].device)
     emit_k = ops.embed_join_emit(fill.clone(), *args, row_off, row_base)
     emit_p = ref.embed_join_emit_ref(fill.clone(), *args, row_off, row_base)
+    table, row_valid, cand, cand_valid, elab, qp, ql, qv = args
+    # the next-table emit takes every row, candidate and constraint live:
+    # checked where the level's masks are all true
+    all_live = bool(row_valid.all() and cand_valid.all() and qv.all())
+    if all_live:
+        rows = torch.full((total + 5, table.shape[1] + 1), -7,
+                          dtype=torch.int32, device=table.device)
+        table_k = rows.clone()  # rows past the survivors must stay -7
+        ops.emit_table_live(table_k[:total], table, cand, elab, qp, ql,
+                            row_off)
+        table_p = ref.embed_join_emit_table_ref(rows.clone(), *args, row_off)
     torch.cuda.synchronize()
     errs = {
         "embed_join_count": int((count_k.long() - count_p.long()).abs().max()),
         "embed_join_grid": int((grid_k.long() - grid_p.long()).abs().max()),
         "embed_join_emit": int((emit_k - emit_p).abs().max()),
+        "embed_join_emit_table": (int((table_k - table_p).abs().max())
+                                  if all_live else 0),
     }
     table, _, cand, _, _, qp, *_ = args
     log(f"  {name}: R={table.shape[0]} T={table.shape[1]} C={cand.shape[0]} "
@@ -742,7 +765,8 @@ def phase_kernels(ops, ref, search, core, graphs, dev):
     log(f"[3 kernels] recorded {len(levels_h)} HUMAN and {len(levels_j)} "
         f"join-heavy level slices; checking each, and ragged variants of "
         f"the largest join-heavy one")
-    max_err = {"embed_join_count": 0, "embed_join_grid": 0, "embed_join_emit": 0}
+    max_err = {"embed_join_count": 0, "embed_join_grid": 0, "embed_join_emit": 0,
+               "embed_join_emit_table": 0}
     cases = [(f"HUMAN_level_{i}", a) for i, a in enumerate(levels_h)]
     cases += [(f"join_level_{i}", a) for i, a in enumerate(levels_j)]
     cases += ragged_variants(real_j, rng)
@@ -767,6 +791,9 @@ def phase_kernels(ops, ref, search, core, graphs, dev):
         row_off = count_p.cumsum(0) - count_p
         total = int(count_p.sum())
         idx = torch.zeros(total, dtype=torch.int64, device=table.device)
+        nxt = torch.zeros((total, table.shape[1] + 1), dtype=torch.int32,
+                          device=table.device)
+        _, _, cand_l, _, elab_l, qp_l, ql_l, _ = args
         fns = {
             "embed_join_count": (lambda: ops.embed_join_count(*args),
                                  lambda: ref.embed_join_count_ref(*args),
@@ -775,6 +802,14 @@ def phase_kernels(ops, ref, search, core, graphs, dev):
                                 lambda: ref.embed_join_emit_ref(idx, *args, row_off, 0),
                                 bound_of(args, out_bytes=8 * total,
                                          extra_in_bytes=8 * r)),
+            # the level loop's emit, writing the next table: (T + 1) int32
+            # a survivor in place of its 8-byte cell id
+            "embed_join_emit_table": (
+                lambda: ops.emit_table_live(nxt, table, cand_l, elab_l, qp_l,
+                                            ql_l, row_off),
+                lambda: ref.embed_join_emit_table_ref(nxt, *args, row_off),
+                bound_of(args, out_bytes=4 * (table.shape[1] + 1) * total,
+                         extra_in_bytes=8 * r)),
             "embed_join_grid": (lambda: ops.embed_join(*args),
                                 lambda: ref.embed_join_grid_ref(*args),
                                 bound_of(args, out_bytes=r * c)),
@@ -5399,7 +5434,7 @@ def main(argv=None) -> int:
         # the device join and the batch engine run the filter kernels and
         # the device join's count and emit kernels; the grid kernel runs in
         # the host join's large levels, which only phase 5's tables reach
-        path = ("embed_join_count", "embed_join_emit", "cni_encode",
+        path = ("embed_join_count", "embed_join_emit_table", "cni_encode",
                 "candidate_filter")
         required = {(4, "device"): path, (5, "device"): path,
                     (5, "host"): ("embed_join_grid",), (6, "device"): path,
@@ -5424,7 +5459,7 @@ def main(argv=None) -> int:
                                              "candidate_filter"),
                     (13, "meshed_engine"): path,
                     (13, "sharded_join"): ("embed_join_count",
-                                           "embed_join_emit"),
+                                           "embed_join_emit_table"),
                     (13, "distributed_join"): ("embed_join_grid",),
                     (13, "meshed_batch"): path,
                     (13, "sharded_store_seed"): ("cni_encode",),
@@ -5476,6 +5511,9 @@ def main(argv=None) -> int:
             ("embed_join_grid", "embed_join/csrc/embed_join.cu",
              "src/repro/kernels/embed_join/kernel.py:129"),
             ("embed_join_emit", "embed_join/csrc/embed_join.cu",
+             "src/repro/kernels/embed_join/ops.py:155"),
+            # the emit pass and the decode after it
+            ("embed_join_emit_table", "embed_join/csrc/embed_join.cu",
              "src/repro/kernels/embed_join/ops.py:155"),
             ("cni_encode", "cni_encode/csrc/cni_encode.cu",
              "src/repro/kernels/cni_encode/kernel.py:62"),

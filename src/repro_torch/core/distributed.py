@@ -660,69 +660,60 @@ def enum_row_blocks(weights, n_shards: int) -> np.ndarray:
     return np.maximum.accumulate(bounds)
 
 
-def _row_slices(tab: torch.Tensor, n_rows: int, rows_per: int):
-    """(lo, slice, row_valid) over the live rows of one shard's table."""
-    out = []
-    for lo in range(0, n_rows, rows_per):
-        sl = tab[lo : lo + rows_per]
-        rv = torch.arange(sl.shape[0], device=tab.device) < min(
-            n_rows - lo, rows_per)
-        out.append((lo, sl, rv))
-    return out
+def _slices(n_rows: int, rows_per: int):
+    """(lo, hi) bounds of the launches over ``n_rows`` live rows."""
+    return [(lo, min(lo + rows_per, n_rows))
+            for lo in range(0, n_rows, rows_per)]
 
 
-def enum_count(tables, sizes, level, rows_per: int):
-    """Per-shard count phase: for each shard, its per-row survivor counts
-    (``embed_join_count``, one launch per row slice), their exclusive scan
-    (int64) and its total, all on the shard's device.  ``level`` holds the
-    replicated (cand, cand_valid, elab, q_pos, q_lab, q_valid) lists."""
-    counts, row_off, totals = [], [], []
+def enum_count(tables, sizes, level, rows_per: int, counts, scans) -> None:
+    """Per-shard count phase into the join's per-query buffers: shard i's
+    per-row survivor counts into ``counts[i][:n]`` (``count_live``, one
+    launch per row slice of its ``n = sizes[i]`` live rows) and their
+    scan into ``scans[i][1 : n + 1]`` (int64; ``scans[i][0]`` is 0), so
+    ``scans[i][:n]`` holds the exclusive row offsets and ``scans[i][n]``
+    the shard's total, all on the shard's device.  ``level`` holds the
+    replicated (cand, elab, q_pos, q_lab) lists."""
     for i, tab in enumerate(tables):
-        args = [x[i] for x in level]
-        with on_device(tab.device):
-            parts = [join_ops.embed_join_count(sl, rv, *args) for _, sl, rv
-                     in _row_slices(tab, int(sizes[i]), rows_per)]
-        c = (torch.cat(parts) if parts
-             else torch.zeros(0, dtype=torch.int32, device=tab.device))
-        inclusive = c.cumsum(0)
-        counts.append(c)
-        row_off.append(inclusive - c)
-        totals.append(inclusive[-1] if c.numel()
-                      else torch.zeros((), dtype=torch.int64,
-                                       device=tab.device))
-    return counts, row_off, totals
-
-
-def enum_emit(tables, sizes, row_off, shard_tot, caps, level, c_pad: int,
-              rows_per: int) -> list:
-    """Per-shard emit phase: each shard scatters its survivors' int64 cell
-    ids (``embed_join_emit``, one launch per row slice, the slice base
-    ``lo`` added to its shard-local rows) into an exactly sized
-    ``(caps[i],)`` map and decodes it into its next table slice."""
-    out = []
-    for i, tab in enumerate(tables):
-        dev = tab.device
-        cand, args = level[0][i], [x[i] for x in level]
-        tot = int(shard_tot[i])
-        if tot == 0:
-            out.append(torch.zeros((caps[i], tab.shape[1] + 1),
-                                   dtype=torch.int32, device=dev))
+        n = int(sizes[i])
+        if n == 0:
             continue
-        idx_map = torch.zeros(caps[i], dtype=torch.int64, device=dev)
-        with on_device(dev):
-            for lo, sl, rv in _row_slices(tab, int(sizes[i]), rows_per):
-                join_ops.embed_join_emit(idx_map, sl, rv, *args,
-                                         row_off[i][lo : lo + sl.shape[0]], lo)
-        r_idx = idx_map // c_pad
-        c_idx = idx_map - r_idx * c_pad
-        new = torch.cat([tab[r_idx], cand[c_idx][:, None]], dim=1)
-        # slots past the total hold cell 0 (a valid address): zero them
-        slot_ok = torch.arange(caps[i], device=dev) < tot
-        out.append(torch.where(slot_ok[:, None], new, 0))
+        cand, elab, q_pos, q_lab = (x[i] for x in level)
+        with on_device(tab.device):
+            for lo, hi in _slices(n, rows_per):
+                join_ops.count_live(counts[i][lo:hi], tab[lo:hi], cand, elab,
+                                    q_pos, q_lab)
+        torch.cumsum(counts[i][:n], 0, dtype=torch.int64,
+                     out=scans[i][1 : n + 1])
+
+
+def read_totals(scans, sizes, host: torch.Tensor) -> np.ndarray:
+    """The shards' totals ``scans[i][sizes[i]]`` on the host: one
+    ``non_blocking`` copy per shard into ``host`` ((D,) int64, pinned when a
+    shard lies on a card), then one wait per distinct card's stream."""
+    for i, scan in enumerate(scans):
+        n = int(sizes[i])
+        host[i : i + 1].copy_(scan[n : n + 1], non_blocking=True)
+    for dev in dict.fromkeys(scan.device for scan in scans):
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+    return host.numpy().copy()
+
+
+def enum_emit(tables, sizes, scans, shard_tot, caps, level,
+              rows_per: int) -> list:
+    """Per-shard emit phase: shard i writes its survivors' rows (the parent
+    row, then the candidate) at their scan slots of a zeroed ``(caps[i],
+    T + 1)`` next table (``emit_table_live``, one launch per row slice)."""
+    out = []
+    for i, tab in enumerate(tables):
+        nxt = torch.zeros((caps[i], tab.shape[1] + 1), dtype=torch.int32,
+                          device=tab.device)
+        if shard_tot[i]:
+            cand, elab, q_pos, q_lab = (x[i] for x in level)
+            with on_device(tab.device):
+                for lo, hi in _slices(int(sizes[i]), rows_per):
+                    join_ops.emit_table_live(nxt, tab[lo:hi], cand, elab,
+                                             q_pos, q_lab, scans[i][lo:hi])
+        out.append(nxt)
     return out
-
-
-def host_values(parts: Sequence[torch.Tensor]) -> np.ndarray:
-    """The shards' scalars on the host, in one copy."""
-    return gather_to([p.reshape(1) for p in parts],
-                     parts[0].device).cpu().numpy().astype(np.int64)

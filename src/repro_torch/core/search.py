@@ -11,10 +11,11 @@ Three engines, all enumerating the same embeddings in the same row order:
 * ``device_join_search`` — the partial-embedding table stays on the device
   and every level is a two-phase join: a count pass sizes the output, an
   on-device exclusive scan assigns slots (one scalar syncs per level), and
-  an emit pass scatters each survivor's cell id into an exactly-sized,
-  128-row-aligned buffer that one gather decodes.  On a CUDA device the
-  count and emit passes are the hand-written kernels; on the CPU the same
-  loop runs their plain versions.
+  an emit pass writes each survivor's row of the next table into an
+  exactly-sized, 128-row-aligned buffer.  The level loop's inputs reach
+  the device in one upload a query.  On a CUDA device the count and emit
+  passes are the hand-written kernels; on the CPU the same loop runs their
+  plain versions.
 * ``sharded_device_join_search`` — the same join with the table split by
   row across a mesh (``core/distributed.py``), one contiguous block per
   shard, and a count-driven rebalancer; ``device_join_search`` is its
@@ -351,21 +352,21 @@ def device_join_search(
     any valid ``order``).  The partial-embedding table stays on ``device``
     and each level runs, over cell-budgeted row slices:
 
-    1. **count** — ``embed_join_count`` per slice, (R,) int32 survivors;
+    1. **count** — the count kernel per slice, (R,) int32 survivors;
     2. **scan**  — an on-device cumsum turns counts into exclusive slots;
        only the level's total syncs to the host;
-    3. **emit**  — ``embed_join_emit`` writes each survivor's flat cell id
-       ``(row_base + r) * C + c`` (int64) at its slot of an exactly-sized,
-       128-aligned buffer, which one gather decodes into the next table.
+    3. **emit**  — the emit kernel writes each survivor's next-table row
+       (its parent row, then the candidate) at its slot of an
+       exactly-sized, 128-aligned buffer.
 
     ``report``: optional dict filled with the ``empty_enum_report()``
     schema on every exit path.  With an active tracer the join opens
-    ``enum.build`` (adjacency, edge-label matrix, matching order, seed
-    tables), then per level ``enum.stage`` (candidates, constraints and
-    their uploads) and ``enum.count`` / ``enum.scan`` / ``enum.emit``,
-    and last ``enum.assemble`` (the copy back); see ``_partitioned_join``
-    for their attributes.  This is the one-shard case of
-    ``sharded_device_join_search``, which runs it.
+    ``enum.build`` (adjacency, matching order, every level's candidates
+    and constraints, their one upload, the edge-label matrix), then per
+    level ``enum.stage`` (the level's views) and ``enum.count`` /
+    ``enum.scan`` / ``enum.emit``, and last ``enum.assemble`` (the copy
+    back); see ``_partitioned_join`` for their attributes.  This is the
+    one-shard case of ``sharded_device_join_search``, which runs it.
     """
     return _partitioned_join(data, query, candidates,
                              dist.device_mesh(1, devices=resolve_device(device)),
@@ -392,11 +393,10 @@ def sharded_device_join_search(
     row into one contiguous block per shard, in shard order, and children
     of contiguous parents are contiguous in the flat row-major survivor
     order, so the shards' live prefixes concatenate to the single-device
-    order, level after level.  Each shard runs the count
-    (``embed_join_count``) and emit (``embed_join_emit``) passes on its own
-    device against replicated candidate and edge-label tensors (one copy
-    per distinct device); the per-shard totals, the level's one host read,
-    number the next level's rows.
+    order, level after level.  Each shard runs the count and emit passes
+    on its own device against replicated candidate and edge-label tensors
+    (one copy per distinct device); the per-shard totals, the level's one
+    host read, number the next level's rows.
 
     The count pass prices every parent's emit, so when the heaviest
     shard's total exceeds ``rebalance_threshold ×`` the mean, the parents
@@ -414,26 +414,101 @@ def sharded_device_join_search(
                              rebalance_threshold=rebalance_threshold)
 
 
+def _edge_label_matrix(src, dst, elab, n: int) -> torch.Tensor:
+    """The (n, n) int32 edge-label matrix, filled on the edge list's device
+    from its int32 ``src``, ``dst`` and ``elab``: the label, or -1 where
+    there is no edge.  A repeated (src, dst) pair holds the label of its
+    last occurrence, as ``_dense_edge_labels`` leaves it: each cell takes
+    the largest position of its edges (``scatter_reduce`` with ``amax``,
+    the same on every run), then that edge's label."""
+    m = torch.full((n * n,), -1, dtype=torch.int32, device=src.device)
+    if src.numel():
+        key = src.long() * n + dst.long()
+        pos = torch.arange(src.numel(), dtype=torch.int32, device=src.device)
+        m.scatter_reduce_(0, key, pos, "amax")
+        hit = m >= 0
+        m = elab.index_select(0, m.clamp_(min=0))
+        m.masked_fill_(hit.logical_not_(), -1)
+    return m.view(n, n)
+
+
+def _pack_join(data, cand, q_adj, order, pos_of, *, pinned: bool):
+    """Everything the level loop reads, in one int32 host buffer (pinned for
+    a card): u_0's candidate ids (the seeds), the edge list (src, dst,
+    labels), then for each level t its candidate ids and its matched
+    neighbours' positions (< t) and edge labels.
+
+    Returns ``(buffer, seeds, edges, levels)``: ``seeds`` a (lo, hi) span
+    of the buffer, ``edges`` three spans, ``levels`` one
+    ``(cand, q_pos, q_lab)`` triple of spans a level."""
+    n_q = len(order)
+    cols, ids = np.nonzero(np.ascontiguousarray(cand.T))
+    starts = np.searchsorted(cols, np.arange(n_q + 1))
+    edges = [as_numpy(x) for x in (data.src, data.dst, data.elabels)]
+    parts = [ids[starts[order[0]] : starts[order[0] + 1]], *edges]
+    for t in range(1, n_q):
+        u = order[t]
+        nbrs = [(pos_of[w], el) for w, el in q_adj.get(u, {}).items()
+                if pos_of[w] < t]
+        parts += [ids[starts[u] : starts[u + 1]], [p for p, _ in nbrs],
+                  [el for _, el in nbrs]]
+    bounds = np.concatenate([[0], np.cumsum([len(x) for x in parts])])
+    spans = list(zip(bounds[:-1].tolist(), bounds[1:].tolist()))
+    buf = torch.empty(int(bounds[-1]), dtype=torch.int32, pin_memory=pinned)
+    host = buf.numpy()
+    for (lo, hi), x in zip(spans, parts):
+        host[lo:hi] = x
+    return buf, spans[0], spans[1:4], [tuple(spans[k : k + 3])
+                                       for k in range(4, len(spans), 3)]
+
+
+def _fit_buffers(counts, scans, sizes) -> None:
+    """Grow shard i's count and scan buffers (the count's output, and its
+    scan with a leading 0) to hold ``sizes[i]`` rows: a query allocates
+    them on its first level and again only when a level outgrows them."""
+    for i, n in enumerate(sizes):
+        if counts[i].shape[0] < n:
+            cap = _align_rows(max(int(n), 2 * counts[i].shape[0]))
+            dev = counts[i].device
+            counts[i] = torch.empty(cap, dtype=torch.int32, device=dev)
+        if scans[i].shape[0] <= n:
+            scans[i] = torch.zeros(counts[i].shape[0] + 1, dtype=torch.int64,
+                                   device=counts[i].device)
+
+
 def _partitioned_join(data, query, candidates, mesh, *, order,
                       max_embeddings, report, rebalance_threshold):
     """The two-phase join over the shards of ``mesh`` (one shard: the
     single-device join).
 
+    ``enum.build`` computes every level's candidate ids and matched-
+    neighbour constraints on the host, packs them with the seed ids and
+    the edge list into one int32 buffer and uploads it once per distinct
+    device (``non_blocking``, from pinned memory when a shard is on a
+    card); each device fills its (N, N) edge-label matrix from the edge
+    list, and every level reads views of its copy.  A level then makes
+    one host read (the shards' totals, which size the emit) and two
+    kernel launches a row slice (count, emit), with the scan and the next
+    table's allocation beside them; the emit writes the next table
+    itself.  The rebalancer, when it fires, reads the counts and uploads
+    the new offsets, as before.
+
     Spans, with an active tracer only: ``enum.build`` (``h2d_bytes``: the
-    seed tables), per level ``enum.stage`` (``h2d_bytes``: the candidates,
-    their mask, the constraints and, on the first level, the (N, N) int32
-    edge-label matrix) and ``enum.count`` / ``enum.scan`` / ``enum.emit``,
-    contiguous as their ``*_seconds`` in the report, and ``enum.assemble``.
-    ``h2d_bytes`` counts every tensor uploaded, once per distinct device.
+    packed buffer, once per distinct device), per level ``enum.stage``
+    (the level's views) and ``enum.count`` / ``enum.scan`` / ``enum.emit``,
+    contiguous as their ``*_seconds`` in the report, and
+    ``enum.assemble``.  Each carries ``copies``: the host<->device copies
+    the join issued inside it (counted as issued, also where a shard lies
+    on the host and the copy is a no-op).
     """
     traced = obsv.enabled()
     n_shards = mesh.n_shards
+    devices = list(dict.fromkeys(mesh.devices))
+    cuda = any(dev.type == "cuda" for dev in devices)
     with obsv.span("enum.build") as build_span:
         cand = as_numpy(candidates)
         n_q = query.n_vertices
         q_adj = _host_adjacency(query)
-        elab_np = _dense_edge_labels(data, data.n_vertices)
-        elab = None
         order = _matching_order(order, cand, q_adj, n_q)
         pos_of = {u: i for i, u in enumerate(order)}
 
@@ -443,65 +518,66 @@ def _partitioned_join(data, query, candidates, mesh, *, order,
         if report is not None:
             report.update(stats)
 
+        host, seeds, edges, level_spans = _pack_join(
+            data, cand, q_adj, order, pos_of, pinned=cuda)
+        bufs, elabs = {}, {}
+        for dev in devices:
+            buf = host.to(dev, non_blocking=True)
+            elabs[dev] = _edge_label_matrix(*(buf[lo:hi] for lo, hi in edges),
+                                            data.n_vertices)
+            ops.check_level_operands(buf, elabs[dev])
+            bufs[dev] = buf
+        # each level: the shards' (cand, elab, q_pos, q_lab) lists
+        levels = [([bufs[d][c0:c1] for d in mesh.devices],
+                   [elabs[d] for d in mesh.devices],
+                   [bufs[d][p0:p1] for d in mesh.devices],
+                   [bufs[d][l0:l1] for d in mesh.devices])
+                  for (c0, c1), (p0, p1), (l0, l1) in level_spans]
+
         # seed: equal-rows contiguous blocks of u_0's candidate list
-        seed_ids = np.nonzero(cand[:, order[0]])[0].astype(np.int32)
-        total = int(seed_ids.size)
+        total = seeds[1] - seeds[0]
         bounds = dist.enum_row_blocks(np.ones(total, np.int64), n_shards)
         sizes = np.diff(bounds).astype(np.int64)
-        tables = []
-        for i, dev in enumerate(mesh.devices):
-            block = seed_ids[bounds[i] : bounds[i + 1]]
-            tables.append(torch.as_tensor(
-                np.pad(block, (0, _align_rows(block.size) - block.size)
-                       ).reshape(-1, 1), device=dev))
+        tables = [bufs[dev][seeds[0] + bounds[i] : seeds[0] + bounds[i + 1]]
+                  .view(-1, 1) for i, dev in enumerate(mesh.devices)]
+        counts = [torch.empty(0, dtype=torch.int32, device=dev)
+                  for dev in mesh.devices]
+        scans = [torch.empty(0, dtype=torch.int64, device=dev)
+                 for dev in mesh.devices]
+        host_tot = torch.empty(n_shards, dtype=torch.int64, pin_memory=cuda)
         if traced:
-            build_span.set_attrs(h2d_bytes=sum(tab.nbytes for tab in tables))
+            build_span.set_attrs(h2d_bytes=host.nbytes * len(devices),
+                                 copies=len(devices))
     stats["max_table_rows"] = total
     stats["max_emit_rows"] = n_shards * _align_rows(int(sizes.max()))
     stats["emit_rows_max"] = int(sizes.max())
     stats["emit_rows_min"] = int(sizes.min())
 
     for t in range(1, n_q):
-        u = order[t]
         with obsv.span("enum.stage") as stage_span:
-            cand_ids = np.nonzero(cand[:, u])[0].astype(np.int32)
-            if total and cand_ids.size:
-                q_pos, q_lab, q_val = _level_constraints(q_adj, pos_of, u, t)
-                j = int(q_pos.size)
-                c_pad = max(128, -(-cand_ids.size // 128) * 128)
-                first = elab is None
-                if first:
-                    elab = dist.replicate(torch.as_tensor(elab_np), mesh)
-                level = (
-                    dist.replicate(torch.as_tensor(
-                        np.pad(cand_ids, (0, c_pad - cand_ids.size))), mesh),
-                    dist.replicate(torch.arange(c_pad) < cand_ids.size, mesh),
-                    elab,
-                    *(dist.replicate(torch.as_tensor(x), mesh)
-                      for x in (q_pos, q_lab, q_val)),
-                )
-                if traced:
-                    h2d = sum(x[0].nbytes for x in level
-                              if first or x is not elab)
-                    stage_span.set_attrs(h2d_bytes=h2d * len(set(mesh.devices)))
-        if total == 0 or cand_ids.size == 0:
+            level = levels[t - 1]
+            (c0, c1), (p0, p1), _ = level_spans[t - 1]
+            if traced:
+                stage_span.set_attrs(copies=0)
+        if total == 0 or c1 == c0:
             if report is not None:
                 report.update(stats)
             return np.zeros((0, n_q), dtype=np.int64)
         stats["device_rounds"] += 1
-        rows_per = dist.enum_rows_per(c_pad, j)
+        rows_per = dist.enum_rows_per(_align_rows(c1 - c0), max(1, p1 - p0))
         rebalanced = False
         rebal_dt = 0.0
 
         # -- count, with the scan fused per shard: only (D,) totals sync
         t0 = time.perf_counter()
-        counts, row_off, totals = dist.enum_count(tables, sizes, level,
-                                                  rows_per)
-        shard_tot = dist.host_values(totals)
+        _fit_buffers(counts, scans, sizes)
+        dist.enum_count(tables, sizes, level, rows_per, counts, scans)
+        shard_tot = dist.read_totals(scans, sizes, host_tot)
         t1 = time.perf_counter()
         stats["count_seconds"] += t1 - t0
-        obsv.span_at("enum.count", t0, t1, level=t, rows=total,
-                     shards=n_shards)
+        if traced:
+            obsv.span_at("enum.count", t0, t1, level=t, rows=total,
+                         shards=n_shards, copies=n_shards)
 
         # the level's phases are contiguous: the scan starts where the
         # count ends, the emit where the scan ends
@@ -510,7 +586,8 @@ def _partitioned_join(data, query, candidates, mesh, *, order,
         if new_total == 0:
             t1 = time.perf_counter()
             stats["scan_seconds"] += t1 - t0
-            obsv.span_at("enum.scan", t0, t1, level=t)
+            if traced:
+                obsv.span_at("enum.scan", t0, t1, level=t, copies=0)
             total = 0
             sizes = np.zeros(n_shards, np.int64)
             stats["levels"].append(_level_record(t, [0] * n_shards))
@@ -518,6 +595,7 @@ def _partitioned_join(data, query, candidates, mesh, *, order,
 
         # -- rebalance: recut parents by exact child weights when the
         # heaviest shard's emit passes the threshold over the mean
+        scan_copies = 0
         if (n_shards > 1
                 and shard_tot.max() * n_shards
                 > rebalance_threshold * new_total):
@@ -525,6 +603,7 @@ def _partitioned_join(data, query, candidates, mesh, *, order,
             weights = np.concatenate([
                 c[: sizes[i]].cpu().numpy().astype(np.int64)
                 for i, c in enumerate(counts)])
+            scan_copies += n_shards
             new_bounds = dist.enum_row_blocks(weights, n_shards)
             if not np.array_equal(new_bounds, bounds):
                 new_sizes = np.diff(new_bounds).astype(np.int64)
@@ -533,13 +612,13 @@ def _partitioned_join(data, query, candidates, mesh, *, order,
                                             caps)
                 # the scan's offsets follow from the weights on the host:
                 # no recount on the devices
-                row_off = []
                 for i, dev in enumerate(mesh.devices):
                     w = weights[new_bounds[i] : new_bounds[i + 1]]
-                    off = np.zeros(caps[i], np.int64)
-                    off[: w.size] = np.cumsum(w) - w
-                    row_off.append(torch.as_tensor(off, device=dev))
+                    off = np.zeros(caps[i] + 1, np.int64)
+                    off[1 : w.size + 1] = np.cumsum(w)
+                    scans[i] = torch.as_tensor(off, device=dev)
                     shard_tot[i] = w.sum()
+                scan_copies += n_shards
                 moved = int(sum(
                     max(0, new_sizes[i]
                         - max(0, min(new_bounds[i + 1], bounds[i + 1])
@@ -555,24 +634,24 @@ def _partitioned_join(data, query, candidates, mesh, *, order,
                              level=t, rows_moved=moved)
         t1 = time.perf_counter()
         stats["scan_seconds"] += t1 - t0 - rebal_dt
-        obsv.span_at("enum.scan", t0, t1, level=t)
+        if traced:
+            obsv.span_at("enum.scan", t0, t1, level=t, copies=scan_copies)
 
-        # -- emit: each shard into its exactly sized block
+        # -- emit: each shard writes its exactly sized next table
         t0 = t1
-        out_cap = _align_rows(int(shard_tot.max()))
-        tables = dist.enum_emit(tables, sizes, row_off, shard_tot,
-                                [_align_rows(n) for n in shard_tot], level,
-                                c_pad, rows_per)
+        caps = [_align_rows(n) for n in shard_tot]
+        tables = dist.enum_emit(tables, sizes, scans, shard_tot, caps, level,
+                                rows_per)
         if traced:
             dist.sync(mesh)  # the emit's span then holds the device's work
 
         # advance: children become the next level's contiguous blocks
-        sizes = shard_tot.astype(np.int64)
+        sizes = shard_tot
         bounds = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
         total = new_total
         stats["max_table_rows"] = max(stats["max_table_rows"], total)
         stats["max_emit_rows"] = max(stats["max_emit_rows"],
-                                     n_shards * out_cap)
+                                     n_shards * max(caps))
         stats["levels"].append(_level_record(
             t, sizes, rebalanced=rebalanced, rebalance_seconds=rebal_dt))
         if int(sizes.max()) > stats["emit_rows_max"]:
@@ -580,17 +659,23 @@ def _partitioned_join(data, query, candidates, mesh, *, order,
             stats["emit_rows_min"] = int(sizes.min())
         t1 = time.perf_counter()
         stats["emit_seconds"] += t1 - t0
-        obsv.span_at("enum.emit", t0, t1, level=t, rows=new_total)
+        if traced:
+            obsv.span_at("enum.emit", t0, t1, level=t, rows=new_total,
+                         copies=0)
 
     # assembly: the live prefixes in shard order are the global row order,
-    # so truncation is a prefix
-    with obsv.span("enum.assemble"):
+    # so truncation is a prefix: only the kept rows come back
+    with obsv.span("enum.assemble") as assemble_span:
         n_keep = total if max_embeddings is None else min(total, max_embeddings)
-        if total == 0:
-            flat = np.zeros((0, n_q), np.int32)
-        else:
-            flat = np.concatenate([tab[: sizes[i]].cpu().numpy()
-                                   for i, tab in enumerate(tables)])[:n_keep]
+        parts = []
+        for i, tab in enumerate(tables):
+            take = min(int(sizes[i]), n_keep - sum(len(p) for p in parts))
+            if take > 0:
+                parts.append(tab[:take].cpu().numpy())
+        flat = (np.concatenate(parts) if parts
+                else np.zeros((0, n_q), np.int32))
+        if traced:
+            assemble_span.set_attrs(copies=len(parts))
         if report is not None:
             report.update(stats)
         return _restore_query_order(flat, order)

@@ -58,7 +58,7 @@
 //             one k coalesce).  A row group with no valid row writes its
 //             zeros without a lookup.
 //
-// embed_join_emit_kernel<K, G>
+// embed_join_emit_kernel<K, G, false>
 //   Replaces: the emit pass embed_join_emit_raw
 //             (src/repro/kernels/embed_join/ops.py:155): the grid kernel,
 //             then a cumsum for the in-row rank, then a scatter with
@@ -80,6 +80,23 @@
 //             while the block stages.  A candidate list longer than two
 //             passes is taken two passes (a window) at a time.  Slots >=
 //             out_cap are dropped.
+//
+// embed_join_emit_kernel<K, G, true>: the emit that writes the next table
+//   Replaces: nothing in the TPU package, whose join decodes cell ids with
+//             gathers after the emit pass; here it takes the place of the
+//             port's own decode (two gathers, a concatenation and a mask
+//             after embed_join_emit_kernel<K, G, false>).
+//   Bound:    bytes: the emit's reads (row_off as above) plus each
+//             survivor's next-table row, (T + 1) int32, written once.
+//   Design:   the emit kernel itself, phase 1 and the shared-memory rows
+//             included; in phase 2 the lane that owns a survivor writes its
+//             parent row (from shared memory) and cand[c] at its slot of the
+//             (out_cap, T + 1) output, in place of the cell id.  The table
+//             is complete when the kernel ends: no decode pass.
+//
+// Null masks: row_valid, cand_valid and q_valid may be null, meaning every
+// row, candidate or constraint is live (the level loop passes exact row
+// slices, exact candidate lists and only matched constraints).
 //
 // The C functions launch on the caller's stream, do not synchronise, and
 // return cudaGetLastError() so the Python wrapper can raise on a refused
@@ -196,7 +213,7 @@ __device__ int stage_rows(const JoinArgs& a, const RowSmem& s, int r0,
     for (int j0 = 0; j0 < a.J; j0 += kWarp) {
       const int j = j0 + tid;
       const bool in = j < a.J;
-      const bool on = in && a.q_valid[j];
+      const bool on = in && (a.q_valid == nullptr || a.q_valid[j]);
       const int pos = in ? a.q_pos[j] : 0;
       const int lab = in ? a.q_lab[j] : 0;
       const unsigned m = __ballot_sync(kFull, on);
@@ -211,7 +228,9 @@ __device__ int stage_rows(const JoinArgs& a, const RowSmem& s, int r0,
   }
   const int* rows = a.table + static_cast<long long>(r0) * a.T;
   for (int i = tid; i < nrows * a.T; i += blockDim.x) s.row[i] = __ldg(rows + i);
-  for (int i = tid; i < nrows; i += blockDim.x) s.rv[i] = a.row_valid[r0 + i];
+  for (int i = tid; i < nrows; i += blockDim.x) {
+    s.rv[i] = a.row_valid == nullptr || a.row_valid[r0 + i];
+  }
   __syncthreads();
   return s_jv;
 }
@@ -225,7 +244,7 @@ __device__ __forceinline__ void load_cands(const JoinArgs& a, int c0, int lane,
   for (int k = 0; k < K; ++k) {
     const int c = c0 + k * kWarp + lane;
     const bool in = c < a.C;
-    const bool valid = in && a.cand_valid[c];
+    const bool valid = in && (a.cand_valid == nullptr || a.cand_valid[c]);
     v[k] = in ? __ldg(a.cand + c) : 0;
     live[k] = valid;
   }
@@ -377,10 +396,16 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
 // candidates c0 + 32q + lane, in candidate order): a warp scan of the
 // words' popcounts gives each chunk's first slot, then the warp walks the
 // non-empty chunks in order, a lane per bit, so slots follow the flat
-// row-major order.  Returns the row's survivor count.
+// row-major order.  A survivor's slot gets its cell id cell0 + c - c0
+// (kTable false) or its next-table row: the row's T ids from shared
+// memory, then cand[c] (kTable true).  Returns the row's survivor count.
+template <bool kTable>
 __device__ __forceinline__ int emit_row(const unsigned* words, int nwords,
                                         long long slot, long long cell0,
+                                        int c0, const int* row, int T,
+                                        const int* __restrict__ cand,
                                         long long* __restrict__ idx_map,
+                                        int* __restrict__ out,
                                         long long out_cap, int lane) {
   const unsigned lanemask_lt = (1u << lane) - 1u;
   int done = 0;
@@ -403,7 +428,14 @@ __device__ __forceinline__ int emit_row(const unsigned* words, int nwords,
       const long long at =
           __shfl_sync(kFull, first, src) + __popc(wq & lanemask_lt);
       if (((wq >> lane) & 1u) && at < out_cap) {
-        idx_map[at] = cell0 + static_cast<long long>(q0 + src) * kWarp + lane;
+        const int c = (q0 + src) * kWarp + lane;
+        if (kTable) {
+          int* dst = out + at * (T + 1);
+          for (int t = 0; t < T; ++t) dst[t] = row[t];
+          dst[T] = __ldg(cand + c0 + c);
+        } else {
+          idx_map[at] = cell0 + c;
+        }
       }
     }
     done += __shfl_sync(kFull, incl, kWarp - 1);
@@ -411,12 +443,12 @@ __device__ __forceinline__ int emit_row(const unsigned* words, int nwords,
   return done;
 }
 
-template <int K, int G>
+template <int K, int G, bool kTable>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
     embed_join_emit_kernel(JoinArgs a, int rows_per_block, int window,
                            const long long* __restrict__ row_off,
                            long long row_base, long long* __restrict__ idx_map,
-                           long long out_cap) {
+                           int* __restrict__ out, long long out_cap) {
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int warps = blockDim.x / kWarp;
@@ -464,11 +496,12 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
     for (int rr = warp; rr < nrows; rr += warps) {
       if (!s.rv[rr]) continue;  // warp-uniform
       const long long slot = s.base[rr];
-      const int done = emit_row(
+      const int done = emit_row<kTable>(
           reinterpret_cast<const unsigned*>(s.red) + rr * row_words,
           np * warps * K, slot,
           (row_base + r0 + rr) * static_cast<long long>(a.C) + p0 * per_pass,
-          idx_map, out_cap, lane);
+          p0 * per_pass, s.row + rr * a.T, a.T, a.cand, idx_map, out, out_cap,
+          lane);
       __syncwarp();
       if (lane == 0) s.base[rr] = slot + done;
     }
@@ -498,7 +531,7 @@ JoinArgs make_args(const void* table, int R, int T, const void* row_valid,
 
 using RowsKernel = void (*)(JoinArgs, int, int*, unsigned char*);
 using EmitKernel = void (*)(JoinArgs, int, int, const long long*, long long,
-                            long long*, long long);
+                            long long*, int*, long long);
 
 // The instantiations for a plan's K and row group G (nullptr for another K).
 template <int G, bool kGrid>
@@ -512,13 +545,13 @@ RowsKernel rows_kernel(int k) {
   return nullptr;
 }
 
-template <int G>
+template <int G, bool kTable>
 EmitKernel emit_kernel(int k) {
   switch (k) {
-    case 1: return embed_join_emit_kernel<1, G>;
-    case 2: return embed_join_emit_kernel<2, G>;
-    case 4: return embed_join_emit_kernel<4, G>;
-    case 8: return embed_join_emit_kernel<8, G>;
+    case 1: return embed_join_emit_kernel<1, G, kTable>;
+    case 2: return embed_join_emit_kernel<2, G, kTable>;
+    case 4: return embed_join_emit_kernel<4, G, kTable>;
+    case 8: return embed_join_emit_kernel<8, G, kTable>;
   }
   return nullptr;
 }
@@ -540,15 +573,22 @@ int launch_rows(const JoinArgs& a, const Plan& p, void* counts, void* grid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The cell-id emit (out null) or the next-table emit (idx_map null).
 int launch_emit(const JoinArgs& a, const Plan& p, const void* row_off,
-                long long row_base, void* idx_map, long long out_cap,
-                void* stream) {
-  const EmitKernel kernel = p.group > 1 ? emit_kernel<kRowGroup>(p.k)
-                                        : emit_kernel<1>(p.k);
+                long long row_base, void* idx_map, void* out,
+                long long out_cap, void* stream) {
+  EmitKernel kernel;
+  if (out != nullptr) {
+    kernel = p.group > 1 ? emit_kernel<kRowGroup, true>(p.k)
+                         : emit_kernel<1, true>(p.k);
+  } else {
+    kernel = p.group > 1 ? emit_kernel<kRowGroup, false>(p.k)
+                         : emit_kernel<1, false>(p.k);
+  }
   kernel<<<p.blocks, p.warps * kWarp, p.smem,
            static_cast<cudaStream_t>(stream)>>>(
       a, p.rows, p.window, static_cast<const long long*>(row_off), row_base,
-      static_cast<long long*>(idx_map), out_cap);
+      static_cast<long long*>(idx_map), static_cast<int*>(out), out_cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -576,7 +616,20 @@ int embed_join_emit(const void* table, int R, int T, const void* row_valid,
   const JoinArgs a = make_args(table, R, T, row_valid, cand, C, cand_valid,
                                elab, N, q_pos, q_lab, q_valid, J);
   return launch_emit(a, plan_rows(R, C, T, J, true), row_off, row_base,
-                     idx_map, out_cap, stream);
+                     idx_map, nullptr, out_cap, stream);
+}
+
+// out: (out_cap, T + 1) int32 row-major, the next table.
+int embed_join_emit_table(const void* table, int R, int T,
+                          const void* row_valid, const void* cand, int C,
+                          const void* cand_valid, const void* elab, int N,
+                          const void* q_pos, const void* q_lab,
+                          const void* q_valid, int J, const void* row_off,
+                          void* out, long long out_cap, void* stream) {
+  const JoinArgs a = make_args(table, R, T, row_valid, cand, C, cand_valid,
+                               elab, N, q_pos, q_lab, q_valid, J);
+  return launch_emit(a, plan_rows(R, C, T, J, true), row_off, 0, nullptr,
+                     out, out_cap, stream);
 }
 
 int embed_join_grid(const void* table, int R, int T, const void* row_valid,

@@ -1,10 +1,9 @@
 """Embed-join entry points: a CPU tensor runs the plain version, a CUDA
 tensor launches the hand-written kernel (``csrc/embed_join.cu``) or raises.
 
-Three entry points back the count → scan → emit device join
-(``core/search.py::device_join_search``), in the reference's argument order
-with the (N, N) edge-label matrix ``elab`` in the place of the reference's
-(N, C) ``elab_cols``:
+Three public entry points, in the reference's argument order with the
+(N, N) edge-label matrix ``elab`` in the place of the reference's (N, C)
+``elab_cols``, each checking its operands:
 
 * ``embed_join``       — the (R, C) bool validity grid;
 * ``embed_join_count`` — (R,) int32 per-row survivor counts;
@@ -14,8 +13,20 @@ with the (N, N) edge-label matrix ``elab`` in the place of the reference's
 Operand types: ``table`` (R, T) int32, ``row_valid`` (R,) bool, ``cand``
 (C,) int32, ``cand_valid`` (C,) bool, ``elab`` (N, N) int32, ``q_pos`` /
 ``q_lab`` (J,) int32, ``q_valid`` (J,) bool, ``row_off`` (R,) int64,
-``idx_map`` int64; all contiguous and on one device.  Each wrapper carries
-a ``launches`` counter that grows by one per kernel launch and nowhere else.
+``idx_map`` int64; all contiguous and on one device.
+
+Two more back the device join's level loop
+(``core/search.py::_partitioned_join``), which checks its operands once a
+query (``check_level_operands``) and then launches without per-call checks,
+every row, candidate and constraint live (null masks in the kernels):
+
+* ``count_live``      — the count pass into a caller's (R,) int32 buffer;
+* ``emit_table_live`` — the emit pass writing each survivor's next-table
+  row (its parent row, then ``cand[c]``) at its slot of ``out``.
+
+Each entry carries a ``launches`` counter that grows by one per kernel
+launch and nowhere else; ``count_live`` counts on ``embed_join_count``'s
+(the same kernel).
 """
 
 from __future__ import annotations
@@ -36,17 +47,21 @@ _ARGTYPES = {
     "embed_join_count": _JOIN_ARGTYPES + [_P, _P],
     "embed_join_grid": _JOIN_ARGTYPES + [_P, _P],
     "embed_join_emit": _JOIN_ARGTYPES + [_P, _L, _P, _L, _P],
+    "embed_join_emit_table": _JOIN_ARGTYPES + [_P, _P, _L, _P],
     "embed_join_plan": [_I, _I, _I, _I, _I, _P],
 }
 
 
 def library() -> _build.BuiltLibrary:
-    """The compiled kernels (built at first call), with ctypes signatures."""
+    """The compiled kernels (built at first call), with ctypes signatures
+    (set once per loaded library)."""
     built = _build.load(SOURCE)
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(built.lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    if not getattr(built, "typed", False):
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(built.lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        built.typed = True
     return built
 
 
@@ -163,14 +178,86 @@ def embed_join_emit(idx_map, table, row_valid, cand, cand_valid, elab, q_pos,
     return idx_map
 
 
+def check_level_operands(buf, elab):
+    """The level loop's one check a query: every table, candidate list and
+    constraint it launches on is a view of ``buf`` (a contiguous 1-d int32
+    tensor) or a contiguous int32 table it allocated beside it, and
+    ``elab`` is the contiguous square int32 matrix on ``buf``'s device."""
+    if (not isinstance(buf, torch.Tensor) or buf.dtype != torch.int32
+            or buf.dim() != 1 or not buf.is_contiguous()):
+        raise TypeError("buf: expected a contiguous 1-d int32 tensor")
+    if (not isinstance(elab, torch.Tensor) or elab.dtype != torch.int32
+            or elab.dim() != 2 or elab.shape[0] != elab.shape[1]
+            or not elab.is_contiguous()):
+        raise TypeError("elab: expected a contiguous square int32 matrix")
+    if elab.device != buf.device:
+        raise ValueError(f"elab is on {elab.device}, buf on {buf.device}")
+    if buf.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no embed-join kernel for device {buf.device}")
+
+
+def _live_masks(table, cand, q_pos):
+    """The all-live masks the plain versions take where a kernel takes
+    null."""
+    dev = table.device
+    return (torch.ones(table.shape[0], dtype=torch.bool, device=dev),
+            torch.ones(cand.shape[0], dtype=torch.bool, device=dev),
+            torch.ones(q_pos.shape[0], dtype=torch.bool, device=dev))
+
+
+def _live_ptrs(table, cand, elab, q_pos, q_lab):
+    r, t = table.shape
+    return (table.data_ptr(), r, t, None, cand.data_ptr(), cand.shape[0],
+            None, elab.data_ptr(), elab.shape[0], q_pos.data_ptr(),
+            q_lab.data_ptr(), None, q_pos.shape[0])
+
+
+def count_live(counts, table, cand, elab, q_pos, q_lab):
+    """The count pass with every row, candidate and constraint live, into
+    ``counts`` ((R,) int32, in place; returned).  No per-call checks: the
+    operands are as ``check_level_operands`` describes."""
+    if table.device.type == "cpu":
+        rv, cv, qv = _live_masks(table, cand, q_pos)
+        return counts.copy_(ref.embed_join_count_ref(
+            table, rv, cand, cv, elab, q_pos, q_lab, qv))
+    if table.shape[0]:
+        rc = library().lib.embed_join_count(
+            *_live_ptrs(table, cand, elab, q_pos, q_lab), counts.data_ptr(),
+            _stream(table.device))
+        _raise_if(rc, "embed_join_count")
+        embed_join_count.launches += 1
+    return counts
+
+
+def emit_table_live(out, table, cand, elab, q_pos, q_lab, row_off):
+    """The emit pass with every row, candidate and constraint live, writing
+    survivor (r, c)'s next-table row ``[*table[r], cand[c]]`` at row
+    ``row_off[r] + rank`` of ``out`` ((cap, T + 1) int32, in place;
+    returned); slots past ``cap`` are dropped, other rows keep their
+    contents.  No per-call checks (``check_level_operands``)."""
+    if table.device.type == "cpu":
+        rv, cv, qv = _live_masks(table, cand, q_pos)
+        return ref.embed_join_emit_table_ref(out, table, rv, cand, cv, elab,
+                                             q_pos, q_lab, qv, row_off)
+    if table.shape[0]:
+        rc = library().lib.embed_join_emit_table(
+            *_live_ptrs(table, cand, elab, q_pos, q_lab), row_off.data_ptr(),
+            out.data_ptr(), out.shape[0], _stream(table.device))
+        _raise_if(rc, "embed_join_emit_table")
+        emit_table_live.launches += 1
+    return out
+
+
 embed_join.launches = 0
 embed_join_count.launches = 0
 embed_join_emit.launches = 0
+emit_table_live.launches = 0
 
 KERNELS = {
     "embed_join_grid": embed_join,
     "embed_join_count": embed_join_count,
     "embed_join_emit": embed_join_emit,
+    "embed_join_emit_table": emit_table_live,
 }
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three embed-join kernels.
+"""Plain PyTorch versions of the embed-join kernels.
 
 One BFS-join expansion asks, for every (partial-embedding row r, candidate
 c) pair, whether appending ``cand[c]`` to row r is still a valid partial
@@ -12,9 +12,11 @@ embedding:
 (−1 = no edge).  The reference passes the candidate-restricted view
 ``elab[:, cand]`` instead; indexing ``elab`` at ``cand[c]`` is the same
 function.  These versions run on any device: the CPU tests use them, and
-the card compares each kernel with them.  ``embed_join_count_tiled`` and
-``embed_join_emit_tiled`` are for the tests only: they compute counts and
-slots in the order the count and emit kernels do.
+the card compares each kernel with them.  ``embed_join_emit_table_ref``
+is the plain version of the emit kernel's next-table variant.
+``embed_join_count_tiled`` and ``embed_join_emit_tiled`` are for the tests
+only: they compute counts and slots in the order the count and emit
+kernels do.
 """
 
 from __future__ import annotations
@@ -61,6 +63,24 @@ def embed_join_emit_ref(idx_map, table, row_valid, cand, cand_valid, elab,
     keep = grid & (slots < idx_map.shape[0])
     idx_map[slots[keep]] = cells[keep]
     return idx_map
+
+
+def embed_join_emit_table_ref(out, table, row_valid, cand, cand_valid, elab,
+                              q_pos, q_lab, q_valid, row_off) -> torch.Tensor:
+    """The emit pass that writes the next table: survivor (r, c) lands at
+    row ``row_off[r] + |{c' < c : valid[r, c']}|`` of ``out`` ((cap, T + 1)
+    int32), the slot ``embed_join_emit_ref`` gives its cell id, and holds
+    ``[*table[r], cand[c]]``: the row the cell id decodes to.  Slots past
+    ``cap`` are dropped; other rows keep their contents.  Returns ``out``.
+    """
+    grid = embed_join_grid_ref(table, row_valid, cand, cand_valid, elab,
+                               q_pos, q_lab, q_valid)
+    vi = grid.to(torch.int64)
+    slots = row_off.to(torch.int64)[:, None] + vi.cumsum(1) - vi
+    keep = grid & (slots < out.shape[0])
+    r_idx, c_idx = torch.nonzero(keep, as_tuple=True)
+    out[slots[keep]] = torch.cat([table[r_idx], cand[c_idx][:, None]], dim=1)
+    return out
 
 
 WARP = 32

@@ -129,8 +129,15 @@ def test_cpu_route_runs_plain_versions_and_counts_nothing():
     grid = ops.embed_join(*args)
     np.testing.assert_array_equal(grid.numpy(), ref.embed_join_grid_ref(*args).numpy())
     ops.embed_join_count(*args)
+    table, _, cand, _, elab, q_pos, q_lab, _ = args
+    counts = ops.count_live(torch.empty(64, dtype=torch.int32), table, cand,
+                            elab, q_pos, q_lab)
+    ops.emit_table_live(torch.zeros((int(counts.sum()), 4), dtype=torch.int32),
+                        table, cand, elab, q_pos, q_lab,
+                        counts.cumsum(0) - counts)
     assert ops.launch_counts() == {"embed_join_grid": 0, "embed_join_count": 0,
-                                   "embed_join_emit": 0}
+                                   "embed_join_emit": 0,
+                                   "embed_join_emit_table": 0}
 
 
 @pytest.mark.parametrize("field,bad", [

@@ -211,6 +211,68 @@ def test_count_and_emit_are_deterministic(cuda, shape):
     assert torch.equal(a, b)
 
 
+# the level loop's launches: a HUMAN level (N about 1,120 after the filter,
+# a hundred-odd candidates, one or two matched neighbours), one past a
+# 4,096-row slice, and a candidate list the emit takes in two windows
+LIVE_SHAPES = [(2048, 8, 96, 1120, 1), (6000, 12, 130, 1120, 2),
+               (40, 3, 3 * PASS + 77, 3 * PASS + 177, 2)]
+
+
+@pytest.mark.parametrize("shape", LIVE_SHAPES)
+def test_live_count_and_table_emit_equal_plain_versions(cuda, shape):
+    """The null-mask count and the next-table emit, over row slices as the
+    level loop launches them, against their plain versions."""
+    r, t, c, n, _ = shape
+    table, _, cand, _, elab, q_pos, q_lab, _ = random_level(
+        *shape, seed=sum(shape) + 3, device=cuda)
+    cand = cand[: min(c, n)].contiguous()  # an exact list: every one live
+    live = (table, torch.ones(r, dtype=torch.bool, device=cuda), cand,
+            torch.ones(cand.shape[0], dtype=torch.bool, device=cuda), elab,
+            q_pos, q_lab, torch.ones(q_pos.shape[0], dtype=torch.bool,
+                                     device=cuda))
+    slices = [(lo, min(lo + 4096, r)) for lo in range(0, r, 4096)]
+    before = ops.launch_counts()
+    counts = torch.empty(r, dtype=torch.int32, device=cuda)
+    for lo, hi in slices:
+        ops.count_live(counts[lo:hi], table[lo:hi], cand, elab, q_pos, q_lab)
+    assert torch.equal(counts, ref.embed_join_count_ref(*live))
+    scan = torch.zeros(r + 1, dtype=torch.int64, device=cuda)
+    torch.cumsum(counts, 0, dtype=torch.int64, out=scan[1:])
+    total = int(scan[-1])
+    assert total > 0
+    out = torch.full((total + 9, t + 1), -7, dtype=torch.int32, device=cuda)
+    for lo, hi in slices:  # into the first ``total`` rows: the rest stay -7
+        ops.emit_table_live(out[:total], table[lo:hi], cand, elab, q_pos,
+                            q_lab, scan[lo:hi])
+    want = ref.embed_join_emit_table_ref(
+        torch.full_like(out, -7), *live, scan[:r])
+    assert torch.equal(out, want)
+    after = ops.launch_counts()
+    assert after["embed_join_count"] - before["embed_join_count"] == len(slices)
+    assert (after["embed_join_emit_table"] - before["embed_join_emit_table"]
+            == len(slices))
+
+
+def test_matrix_fill_on_card_equals_host_build(cuda):
+    """The (N, N) edge-label matrix filled on the card from an edge list
+    with repeated (src, dst) pairs holds what the host build leaves: the
+    last label of each pair."""
+    from repro_torch.core.search import _dense_edge_labels, _edge_label_matrix
+    from repro_torch.graphs.csr import Graph
+
+    rng = np.random.default_rng(7)
+    n, e = 1120, 12000
+    src = rng.integers(0, n, size=e).astype(np.int32)
+    dst = rng.integers(0, n, size=e).astype(np.int32)
+    src[e // 2:] = src[: e - e // 2]  # every pair of the first half repeats
+    dst[e // 2:] = dst[: e - e // 2]
+    elab = rng.integers(0, 4, size=e).astype(np.int32)
+    want = _dense_edge_labels(Graph(np.zeros(n, np.int32), src, dst, elab), n)
+    got = _edge_label_matrix(*(torch.as_tensor(x, device=cuda)
+                               for x in (src, dst, elab)), n)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
 def test_device_join_on_card_equals_cpu(cuda):
     g = random_labeled_graph(3000, 12000, 6, n_edge_labels=2, seed=5, device="cpu")
     q = random_walk_query(g, 5, sparse=True, seed=9, device="cpu")
@@ -1035,7 +1097,7 @@ def test_service_on_card_equals_cpu(cuda):
         if fam["type"] != "histogram" and name != "repro_process_peak_rss_bytes":
             assert snap[name]["series"] == fam["series"], name
     assert got_svc.rejections == want_svc.rejections
-    for name in ("embed_join_count", "embed_join_emit", "cni_encode",
+    for name in ("embed_join_count", "embed_join_emit_table", "cni_encode",
                  "candidate_filter", "cni_update"):
         assert launches[name] > 0, name
 
@@ -1165,7 +1227,7 @@ def test_ooc_store_on_card_equals_cpu(cuda, tmp_path):
     fresh.rebuild(got_store)  # streamed from the chunks, on the card
     for name in ("counts", "deg", "cni", "cni_log"):
         assert torch.equal(getattr(idx, name), getattr(fresh, name)), name
-    for name in ("embed_join_count", "embed_join_emit", "cni_encode",
+    for name in ("embed_join_count", "embed_join_emit_table", "cni_encode",
                  "candidate_filter", "cni_update"):
         assert after[name] > before[name], name
 
@@ -1251,7 +1313,7 @@ def test_meshed_service_on_card_equals_cpu(cuda):
     for name in ("counts", "deg", "cni"):
         assert torch.equal(getattr(store.index, name).cpu(),
                            getattr(cpu_store.index, name)), name
-    for name in ("embed_join_count", "embed_join_emit", "cni_encode",
+    for name in ("embed_join_count", "embed_join_emit_table", "cni_encode",
                  "candidate_filter", "cni_update"):
         assert after[name] > before[name], name
 

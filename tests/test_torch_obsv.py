@@ -378,10 +378,6 @@ def _label_join(seed, n_q):
     return data, query, cand
 
 
-def _pad128(n):
-    return max(128, -(-n // 128) * 128)
-
-
 @pytest.mark.parametrize("seed", [3, 4])
 def test_join_h2d_bytes_are_the_uploaded_tensors(seed):
     data, query, cand = _label_join(seed, 5)
@@ -390,19 +386,20 @@ def test_join_h2d_bytes_are_the_uploaded_tensors(seed):
         emb = device_join_search(data, query, cand, order=order, report={},
                                  device="cpu")
     assert emb.shape[0] >= 1
-    n = data.n_vertices
     src, dst = np.asarray(query.src), np.asarray(query.dst)
-    want = 4 * _pad128(int(cand[:, order[0]].sum()))  # seed table, int32
-    want += 4 * n * n  # the (N, N) int32 edge-label matrix, once
+    # one int32 buffer: the seeds, the data graph's edge list (src, dst,
+    # labels), then each level's candidates and matched neighbours'
+    # positions and labels
+    want = 4 * int(cand[:, order[0]].sum())
+    want += 4 * 3 * int(np.asarray(data.src).size)
     for t in range(1, len(order)):
-        c_pad = _pad128(int(cand[:, order[t]].sum()))
-        j = max(1, len({int(w) for v, w in zip(src, dst)
-                        if v == order[t] and w < t}))
-        # candidates int32 + their mask; positions, labels int32 + valid
-        want += 5 * c_pad + 9 * j
-    got = sum(s.attrs["h2d_bytes"] for s in tr.spans
+        j = len({int(w) for v, w in zip(src, dst) if v == order[t] and w < t})
+        want += 4 * (int(cand[:, order[t]].sum()) + 2 * j)
+    got = sum(s.attrs.get("h2d_bytes", 0) for s in tr.spans
               if s.name in ("enum.build", "enum.stage"))
     assert got == want
+    build, = (s for s in tr.spans if s.name == "enum.build")
+    assert build.attrs["h2d_bytes"] == want  # all of it in one upload
 
 
 def test_gc_collections_are_spans_only_while_tracing():
